@@ -1,0 +1,262 @@
+"""Device-side FEM assembly in PyTorch: quadrature factors, permittivity,
+element blocks and the mass diagonal.
+
+Port of pl_fem_tpu/ops/assembly.py for the vectorial sweep path. All
+functions take tensors already on the target device (``grid_to_device``
+and ``grid_from_numpy`` put them there) and return tensors on it.
+
+Matrix convention: blocks[e, i, j] couples test function i with trial
+function j of element e; global A[I, J] = sum_e blocks[e, i, j] over the
+(I=dof(e,i), J=dof(e,j)) scatter.
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple
+
+import numpy as np
+import torch
+
+from ..models.geometry import EpsParams
+
+
+class GridArrays(NamedTuple):
+    """Device-resident subset of DeviceGrid used by assembly/operators."""
+
+    elem_dofs: torch.Tensor          # (E, 6) int32
+    elem_valid: torch.Tensor         # (E,) bool
+    dof_gather_v: torch.Tensor       # (split, Wv) int32 transpose-gather table
+    dof_gather_valid_v: torch.Tensor  # (split, Wv) bool
+    dof_gather_e: torch.Tensor       # (D - split, 2) int32 (edge-midpoint DOFs)
+    dof_gather_valid_e: torch.Tensor  # (D - split, 2) bool
+    inv_jt: torch.Tensor             # (E, 2, 2) J^{-T}
+    qp_xy: torch.Tensor              # (E, Q, 2)
+    qp_w: torch.Tensor               # (E, Q)
+    grad_phys: torch.Tensor          # (E, Q, 6, 2)
+    shape_vals: torch.Tensor         # (Q, 6)
+    dof_coords: torch.Tensor         # (D, 2)
+    interior_mask: torch.Tensor      # (D,) float (1 interior, 0 boundary/pad)
+    dof_valid: torch.Tensor          # (D,) float
+
+
+def grid_to_device(dg, device, dtype=torch.float32) -> GridArrays:
+    """Ship a DeviceGrid's arrays to ``device``; floats as ``dtype``.
+
+    ``dg`` is any object with the DeviceGrid array fields as numpy
+    arrays (the port's own DeviceGrid or the JAX package's).
+    """
+    def t(a, dt):
+        return torch.tensor(np.asarray(a), device=device, dtype=dt)
+
+    return GridArrays(
+        elem_dofs=t(dg.elem_dofs, torch.int32),
+        elem_valid=t(dg.elem_valid, torch.bool),
+        dof_gather_v=t(dg.dof_gather_v, torch.int32),
+        dof_gather_valid_v=t(dg.dof_gather_valid_v, torch.bool),
+        dof_gather_e=t(dg.dof_gather_e, torch.int32),
+        dof_gather_valid_e=t(dg.dof_gather_valid_e, torch.bool),
+        inv_jt=t(dg.inv_jt, dtype),
+        qp_xy=t(dg.qp_xy, dtype),
+        qp_w=t(dg.qp_w, dtype),
+        grad_phys=t(dg.grad_phys, dtype),
+        shape_vals=t(dg.shape_vals, dtype),
+        dof_coords=t(dg.dof_coords, dtype),
+        interior_mask=t(dg.interior_mask, dtype),
+        dof_valid=t(dg.dof_valid, dtype),
+    )
+
+
+def grid_from_numpy(dg_like, device) -> GridArrays:
+    """The port's f32 device grid from any object carrying the DeviceGrid
+    fields as numpy arrays, the JAX package's DeviceGrid included (the
+    tests feed both packages one mesh this way)."""
+    return grid_to_device(dg_like, device, torch.float32)
+
+
+def qfactor_sweep_from_numpy(invJT, w, inv_eps, gp, device):
+    """A QFactorSweep of f32 tensors on ``device`` from numpy arrays
+    (invJT (E,2,2), w (E,Q), inv_eps (B,E,Q), gp (E,Q,6,2))."""
+    from .kernels import QFactorSweep
+
+    def t(a):
+        return torch.tensor(np.asarray(a), dtype=torch.float32,
+                            device=device)
+
+    return QFactorSweep(invJT=t(invJT), w=t(w), inv_eps=t(inv_eps), gp=t(gp))
+
+
+class EpsArrays(NamedTuple):
+    """Permittivity parameters as device tensors.
+
+    ``pml_start <= 0`` disables the PML branchlessly.
+    """
+
+    positions: torch.Tensor     # (N, 2)
+    core_radii: torch.Tensor    # (N,)
+    eps_core: torch.Tensor      # scalar
+    eps_clad: torch.Tensor
+    pml_start: torch.Tensor
+    pml_thickness: torch.Tensor
+    pml_strength: torch.Tensor
+    pml_order: torch.Tensor
+
+
+def gather_scatter(ga: GridArrays):
+    """GatherScatter topology bundle for the matrix-free kernels."""
+    from .kernels import GatherScatter
+
+    return GatherScatter(elem_dofs=ga.elem_dofs, idx_v=ga.dof_gather_v,
+                         valid_v=ga.dof_gather_valid_v,
+                         idx_e=ga.dof_gather_e,
+                         valid_e=ga.dof_gather_valid_e)
+
+
+def eps_arrays(p: EpsParams, device, dtype=torch.float32) -> EpsArrays:
+    def t(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float64),
+                               dtype=dtype, device=device)
+
+    return EpsArrays(
+        positions=t(p.positions), core_radii=t(p.core_radii),
+        eps_core=t(p.eps_core), eps_clad=t(p.eps_clad),
+        pml_start=t(p.pml_start), pml_thickness=t(p.pml_thickness),
+        pml_strength=t(p.pml_strength), pml_order=t(float(p.pml_order)))
+
+
+def points_in_cores(x, y, positions, radii, factor=1.0):
+    """Vectorized any-core membership test."""
+    d2 = ((x[..., None] - positions[:, 0]) ** 2
+          + (y[..., None] - positions[:, 1]) ** 2)
+    return torch.any(d2 <= (factor * radii) ** 2, dim=-1)
+
+
+def eps_at_quadrature(ga: GridArrays, eps: EpsArrays):
+    """Relative permittivity (re, im) at every quadrature point.
+
+    Same piecewise-constant + annular-PML model as the geometry layer
+    (models/geometry.py ``epsilon_at``), evaluated on device so one grid
+    serves any (eps, k0).
+    """
+    x = ga.qp_xy[..., 0]
+    y = ga.qp_xy[..., 1]
+    in_core = points_in_cores(x, y, eps.positions, eps.core_radii)
+    eps_re = torch.where(in_core, eps.eps_core, eps.eps_clad)
+    rho = torch.clamp((torch.sqrt(x * x + y * y) - eps.pml_start)
+                      / torch.clamp(eps.pml_thickness, min=1e-30), 0.0, 1.0)
+    sigma = torch.where((eps.pml_thickness > 0.0) & (eps.pml_start > 0.0),
+                        eps.pml_strength * rho ** eps.pml_order,
+                        torch.zeros_like(rho))
+    eps_im = eps_re * sigma
+    return eps_re, eps_im
+
+
+def _wsum(ga: GridArrays, coeff, a, b):
+    """sum_q coeff[e,q] * a[e,q,i] * b[e,q,j] with quadrature weights."""
+    return torch.einsum("eq,eqi,eqj->eij", ga.qp_w * coeff, a, b)
+
+
+def vector3_primitives(ga: GridArrays, eps_re) -> Dict[str, torch.Tensor]:
+    """Quadrature primitives for the fixed-beta 3-component H formulation.
+
+    A(beta) = A0 + beta A1 + beta^2 A2 (all real symmetric) for
+        a(h, h') = int (1/eps) [ (dy hz~ - b hy)(.) + (b hx - dx hz~)(.)
+                                 + (dx hy - dy hx)(.) ]
+                 + alpha_p int (dx hx + dy hy - b hz~)(.)
+    Returns the twelve weighted primitives {w}{pair} with w in (i=1/eps,
+    u=1) and pair in (gxgx, gygy, gxgy, nn, ngx, ngy); pair [i, j] =
+    test_i * trial_j.
+    """
+    gx = ga.grad_phys[..., 0]
+    gy = ga.grad_phys[..., 1]
+    Nq = ga.shape_vals[None].expand(ga.qp_w.shape + (6,))
+    inv_eps = 1.0 / eps_re
+    one = torch.ones_like(eps_re)
+    out = {}
+    for wname, w in (("i", inv_eps), ("u", one)):
+        out[wname + "_gxgx"] = _wsum(ga, w, gx, gx)
+        out[wname + "_gygy"] = _wsum(ga, w, gy, gy)
+        out[wname + "_gxgy"] = _wsum(ga, w, gx, gy)
+        out[wname + "_nn"] = _wsum(ga, w, Nq, Nq)
+        out[wname + "_ngx"] = _wsum(ga, w, Nq, gx)
+        out[wname + "_ngy"] = _wsum(ga, w, Nq, gy)
+    return out
+
+
+def combine_vector3(prim: Dict[str, torch.Tensor], beta,
+                    alpha_p: float = 1.0) -> Dict:
+    """Combine primitives into the 3x3 component blocks of A(beta).
+
+    Components ordered (0=x, 1=y, 2=z~). Only the upper triangle is
+    returned; block (j, i) is the element-wise transpose of (i, j).
+    """
+    ap = alpha_p
+    b2 = beta * beta
+
+    def T(M):
+        return M.transpose(1, 2)
+
+    return {
+        (0, 0): (prim["i_gygy"] + ap * prim["u_gxgx"]) + b2 * prim["i_nn"],
+        (1, 1): (prim["i_gxgx"] + ap * prim["u_gygy"]) + b2 * prim["i_nn"],
+        (2, 2): (prim["i_gxgx"] + prim["i_gygy"]) + b2 * ap * prim["u_nn"],
+        (0, 1): -T(prim["i_gxgy"]) + ap * prim["u_gxgy"],
+        (0, 2): beta * (-prim["i_ngx"] - ap * T(prim["u_ngx"])),
+        (1, 2): beta * (-prim["i_ngy"] - ap * T(prim["u_ngy"])),
+    }
+
+
+def assemble_vector3_system(ga: GridArrays, ea: EpsArrays):
+    """Quadrature primitives + mass diagonal for the fixed-beta operator."""
+    eps_re, eps_im = eps_at_quadrature(ga, ea)
+    prim = vector3_primitives(ga, eps_re)
+    diag_e = torch.diagonal(prim["u_nn"].to(torch.float32), dim1=1, dim2=2)
+    diag = torch.zeros(ga.dof_valid.shape[0], dtype=torch.float32,
+                       device=diag_e.device)
+    diag.index_add_(0, ga.elem_dofs.reshape(-1).long(), diag_e.reshape(-1))
+    diag = torch.where(ga.interior_mask > 0, diag, torch.ones_like(diag))
+    return prim, diag, eps_im
+
+
+def assemble_vector3_qf(ga: GridArrays, ea: EpsArrays):
+    """Quadrature factors + mass diagonal for the matrix-free path.
+
+    The diagonal sum_e sum_q w N_i^2 goes through the K2 accumulate
+    (lane count 1)."""
+    from .kernels import QFactor, _N_REF, _accumulate_fused
+
+    eps_re, _ = eps_at_quadrature(ga, ea)
+    f32 = torch.float32
+    qf = QFactor(invJT=ga.inv_jt.to(f32), w=ga.qp_w.to(f32),
+                 inv_eps=(1.0 / eps_re).to(f32))
+    n2 = torch.as_tensor(_N_REF, dtype=f32, device=qf.w.device) ** 2
+    diag_e = torch.einsum("eq,qi->ei", qf.w, n2)
+    diag = _accumulate_fused(diag_e[:, :, None].contiguous(),
+                             gather_scatter(ga))[:, 0]
+    diag = torch.where(ga.interior_mask > 0, diag, torch.ones_like(diag))
+    return qf, diag
+
+
+def stack_blocks(blocks: Dict, n_components: int) -> torch.Tensor:
+    """Fuse symmetric component blocks into one (E, 6C, 6C) tensor.
+
+    ``blocks`` maps (ci, cj) with ci <= cj to (E, 6, 6); missing (cj, ci)
+    is the element-wise transpose."""
+    some = next(iter(blocks.values()))
+    zero = torch.zeros_like(some)
+    rows = []
+    for ci in range(n_components):
+        cols = []
+        for cj in range(n_components):
+            if (ci, cj) in blocks:
+                b = blocks[(ci, cj)]
+            elif (cj, ci) in blocks:
+                b = blocks[(cj, ci)].transpose(1, 2)
+            else:
+                b = zero
+            cols.append(b)
+        rows.append(torch.cat(cols, dim=2))
+    return torch.cat(rows, dim=1)
+
+
+def vector3_stacked_A(prim, beta, alpha_p):
+    """Stacked (E, 18, 18) operator A(beta) from primitives."""
+    return stack_blocks(combine_vector3(prim, beta, alpha_p), 3)

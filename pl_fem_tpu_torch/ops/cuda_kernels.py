@@ -1,0 +1,303 @@
+"""Hand-written CUDA kernels of the filter step (K1-K3), their loader and
+their plain PyTorch twins.
+
+The sources are ``ops/csrc/*.cu``. At first use on a CUDA tensor they
+are compiled with ``nvcc`` for ``sm_90a`` into one shared library with a
+plain C interface under ``pl_fem_tpu_torch/_build/`` and loaded with
+``ctypes``; a source newer than the library triggers a rebuild. Each
+wrapper:
+
+- runs the plain twin when its input lies on the CPU (the tests), and
+  launches the kernel on a CUDA tensor, raising on anything the kernel
+  does not take; a launch is never wrapped in a fallback;
+- allocates the output with ``torch.empty`` and launches on PyTorch's
+  current stream without synchronising;
+- checks the ``cudaGetLastError`` code the C launcher returns;
+- counts its launches in ``<wrapper>.launches``.
+
+The (Q, 6) shape table ``N`` comes from ``ops/quadrature.py`` via
+``ops/kernels.shape_table`` and is passed at launch.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+_CSRC = Path(__file__).parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+_LIB_NAME = "libpl_fem_kernels.so"
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    "pl_apply_vector3_elem": [_P, _P, _P, _P, _P, _P, _P, _F,
+                              _I, _I, _I, _I, _P, _P],
+    "pl_accumulate": [_P, _P, _P, _P, _P, _P, _P, _P,
+                      _I, _I, _I, _I, _P, _P],
+    "pl_apply_mass_elem": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
+}
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    return str(cand) if cand.exists() else "nvcc"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile every ``csrc/*.cu`` into the kernel library; return its path.
+
+    Builds to a private file name and renames it into place, so a
+    concurrent process never loads a half-written library.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / _LIB_NAME
+    tmp = BUILD_DIR / f".{_LIB_NAME}.{os.getpid()}"
+    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
+           *map(str, sorted(_CSRC.glob("*.cu")))]
+    if verbose:
+        cmd.insert(1, "-Xptxas=-v")
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    if verbose:
+        print(res.stdout + res.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+def _stale(lib: Path) -> bool:
+    if not lib.exists():
+        return True
+    t = lib.stat().st_mtime
+    return any(s.stat().st_mtime > t for s in _CSRC.glob("*.cu"))
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built from the sources on first use."""
+    global _LIB
+    if _LIB is None:
+        path = BUILD_DIR / _LIB_NAME
+        if _stale(path):
+            build()
+        L = ctypes.CDLL(str(path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(L, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        L.pl_error_string.argtypes = [ctypes.c_int]
+        L.pl_error_string.restype = ctypes.c_char_p
+        _LIB = L
+    return _LIB
+
+
+def _check(rc: int, what: str):
+    if rc != 0:
+        msg = lib().pl_error_string(rc).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
+
+
+def _require(t: torch.Tensor, name: str, dtype, device, shape=None):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# K1: A(beta_b) element math
+# ---------------------------------------------------------------------------
+
+def apply_vector3_elem_plain(Xm, elem_dofs, gp, w, inv_eps, betas, alpha,
+                             N, k: int):
+    """Plain twin of K1: (D, L) masked block -> (E, 6, L) element results.
+
+    L = B * 3 * k in the (B, 3, k) lane order. The algebra is that of
+    pl_fem_tpu/ops/kernels.py ``_apply_vector3_fused``: values and
+    physical gradients at the Q points, the three curl terms weighted by
+    w / eps_b and the divergence term weighted by w * alpha, pulled back
+    to the 6 local rows. Values and gradients come from one batched
+    product with the per-element table Ph = [N; dN/dx; dN/dy] (3Q, 6),
+    the pull-back from one product with its transpose.
+    """
+    D, L = Xm.shape
+    B = betas.shape[0]
+    E = elem_dofs.shape[0]
+    Q = N.shape[0]
+    U = Xm[elem_dofs.long()]                          # (E, 6, L)
+    Ph = torch.cat([N.expand(E, Q, 6), gp[..., 0], gp[..., 1]], dim=1)
+    VG = torch.bmm(Ph, U).view(E, 3, Q, B, 3, k)
+    V, Gx, Gy = VG[:, 0], VG[:, 1], VG[:, 2]          # (E, Q, B, 3, k)
+    b = betas[None, None, :, None]                    # over (E, Q, B, k)
+    c1 = Gy[:, :, :, 2] - b * V[:, :, :, 1]           # dy hz - b hy
+    c2 = b * V[:, :, :, 0] - Gx[:, :, :, 2]           # b hx - dx hz
+    c3 = Gx[:, :, :, 1] - Gy[:, :, :, 0]              # dx hy - dy hx
+    dv = Gx[:, :, :, 0] + Gy[:, :, :, 1] - b * V[:, :, :, 2]
+    we = (w[:, :, None] * inv_eps.permute(1, 2, 0))[..., None]
+    wa = (w * alpha)[:, :, None, None]
+    c1h, c2h, c3h, dvh = we * c1, we * c2, we * c3, wa * dv
+    # value channel S and gradient channels Tx, Ty per component
+    STT = torch.stack([
+        torch.stack([b * c2h, -b * c1h, -b * dvh], dim=3),
+        torch.stack([dvh, c3h, -c2h], dim=3),
+        torch.stack([-c3h, dvh, c1h], dim=3)], dim=1).view(E, 3 * Q, L)
+    return torch.bmm(Ph.transpose(1, 2), STT)
+
+
+def apply_vector3_elem(Xm, elem_dofs, gp, w, inv_eps, betas, alpha: float,
+                       N, k: int):
+    """K1 (``csrc/apply_vector3.cu``): A(beta_b) element results.
+
+    Xm (D, L) f32 masked block with L = B * 3 * k; elem_dofs (E, 6)
+    int32; gp (E, Q, 6, 2); w (E, Q); inv_eps (B, E, Q); betas (B,);
+    N (Q, 6). Returns Ye (E, 6, L).
+    """
+    if Xm.device.type == "cpu":
+        return apply_vector3_elem_plain(Xm, elem_dofs, gp, w, inv_eps,
+                                        betas, alpha, N, k)
+    dev = Xm.device
+    D, L = Xm.shape
+    E = elem_dofs.shape[0]
+    B = betas.shape[0]
+    Q = w.shape[1]
+    if L != 3 * B * k:
+        raise ValueError(f"lane count {L} != 3 * B * k = {3 * B * k}")
+    f32 = torch.float32
+    _require(Xm, "Xm", f32, dev)
+    _require(elem_dofs, "elem_dofs", torch.int32, dev, (E, 6))
+    _require(gp, "gp", f32, dev, (E, Q, 6, 2))
+    _require(w, "w", f32, dev, (E, Q))
+    _require(inv_eps, "inv_eps", f32, dev, (B, E, Q))
+    _require(betas, "betas", f32, dev, (B,))
+    _require(N, "N", f32, dev, (Q, 6))
+    Ye = torch.empty((E, 6, L), dtype=f32, device=dev)
+    rc = lib().pl_apply_vector3_elem(
+        Xm.data_ptr(), elem_dofs.data_ptr(), gp.data_ptr(), w.data_ptr(),
+        inv_eps.data_ptr(), betas.data_ptr(), N.data_ptr(), float(alpha),
+        E, B, k, Q, Ye.data_ptr(), _stream(dev))
+    _check(rc, "apply_vector3_elem")
+    apply_vector3_elem.launches += 1
+    return Ye
+
+
+apply_vector3_elem.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K2: element -> DOF accumulate (+ mask/park epilogue)
+# ---------------------------------------------------------------------------
+
+def accumulate_plain(Ye, idx_v, valid_v, idx_e, valid_e, X=None, mask=None,
+                     park=None):
+    """Plain twin of K2: (E, 6, L) -> (D, L) through the split tables.
+
+    With ``X`` given, returns ``Y * m + park * (X - X * m)`` (mask m (D,),
+    park (L,) per lane), the epilogue of the operator applies.
+    """
+    E, six, L = Ye.shape
+    flat = Ye.reshape(E * six, L)
+    pv = torch.where(valid_v[..., None], flat[idx_v.long()], 0.0).sum(dim=1)
+    pe = torch.where(valid_e[..., None], flat[idx_e.long()], 0.0).sum(dim=1)
+    Y = torch.cat([pv, pe], dim=0)
+    if X is None:
+        return Y
+    m = mask[:, None]
+    return Y * m + park[None, :] * (X - X * m)
+
+
+def accumulate(Ye, idx_v, valid_v, idx_e, valid_e, X=None, mask=None,
+               park=None):
+    """K2 (``csrc/accumulate.cu``): deterministic element -> DOF sum.
+
+    Ye (E, 6, L) f32; idx_v/valid_v (split, Wv) int32/bool; idx_e/valid_e
+    (D - split, 2). Optional epilogue operands X (D, L), mask (D,) f32 and
+    park (L,) f32. Returns Y (D, L).
+    """
+    if Ye.device.type == "cpu":
+        return accumulate_plain(Ye, idx_v, valid_v, idx_e, valid_e, X,
+                                mask, park)
+    dev = Ye.device
+    E, six, L = Ye.shape
+    split, Wv = idx_v.shape
+    D = split + idx_e.shape[0]
+    f32 = torch.float32
+    _require(Ye, "Ye", f32, dev)
+    _require(idx_v, "idx_v", torch.int32, dev)
+    _require(valid_v, "valid_v", torch.bool, dev, (split, Wv))
+    _require(idx_e, "idx_e", torch.int32, dev, (D - split, 2))
+    _require(valid_e, "valid_e", torch.bool, dev, (D - split, 2))
+    if X is not None:
+        _require(X, "X", f32, dev, (D, L))
+        _require(mask, "mask", f32, dev, (D,))
+        _require(park, "park", f32, dev, (L,))
+    Y = torch.empty((D, L), dtype=f32, device=dev)
+    rc = lib().pl_accumulate(
+        Ye.data_ptr(), idx_v.data_ptr(), valid_v.data_ptr(),
+        idx_e.data_ptr(), valid_e.data_ptr(),
+        None if X is None else X.data_ptr(),
+        None if X is None else mask.data_ptr(),
+        None if X is None else park.data_ptr(),
+        D, split, Wv, L, Y.data_ptr(), _stream(dev))
+    _check(rc, "accumulate")
+    accumulate.launches += 1
+    return Y
+
+
+accumulate.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3: consistent P2 mass element math
+# ---------------------------------------------------------------------------
+
+def apply_mass_elem_plain(Xm, elem_dofs, w, N):
+    """Plain twin of K3: Ye[e, i] = sum_j C_ij(e) Xm[dof(e, j)] with
+    C_ij(e) = sum_q w[e, q] N[q, i] N[q, j]."""
+    C = torch.einsum("eq,qi,qj->eij", w, N, N)
+    return torch.einsum("eij,ejl->eil", C, Xm[elem_dofs.long()])
+
+
+def apply_mass_elem(Xm, elem_dofs, w, N):
+    """K3 (``csrc/apply_mass.cu``): mass element results (E, 6, L).
+
+    Xm (D, L) f32 masked block; elem_dofs (E, 6) int32; w (E, Q); N (Q, 6).
+    """
+    if Xm.device.type == "cpu":
+        return apply_mass_elem_plain(Xm, elem_dofs, w, N)
+    dev = Xm.device
+    D, L = Xm.shape
+    E = elem_dofs.shape[0]
+    Q = w.shape[1]
+    f32 = torch.float32
+    _require(Xm, "Xm", f32, dev)
+    _require(elem_dofs, "elem_dofs", torch.int32, dev, (E, 6))
+    _require(w, "w", f32, dev, (E, Q))
+    _require(N, "N", f32, dev, (Q, 6))
+    Ye = torch.empty((E, 6, L), dtype=f32, device=dev)
+    rc = lib().pl_apply_mass_elem(
+        Xm.data_ptr(), elem_dofs.data_ptr(), w.data_ptr(), N.data_ptr(),
+        E, Q, L, Ye.data_ptr(), _stream(dev))
+    _check(rc, "apply_mass_elem")
+    apply_mass_elem.launches += 1
+    return Ye
+
+
+apply_mass_elem.launches = 0

@@ -1,0 +1,388 @@
+"""The packed same-grid sweep eigensolver (Chebyshev filter + Rayleigh-Ritz).
+
+Port of the sweep path of pl_fem_tpu/ops/kernels.py. B designs that
+share one mesh are packed along the lane axis: the filter state is the
+fused-lane block (D, B, 3, k), viewed as (D, L) with L = B * 3 * k for
+the operator applies, so every gather and accumulate serves all
+components, designs and subspace columns at once. Only 1/eps, beta,
+the filter interval and the park value vary per design.
+
+Every filter step runs four hand-written kernels (``cuda_kernels`` K1-K3
+and ``triton_kernels`` K4): the A(beta_b) element math (K1), the
+element->DOF accumulate with its mask/park epilogue (K2), the mass
+element math inside B^{-1} (K3) and the recurrence step (K4). The
+dense per-design Rayleigh-Ritz steps are ``torch.linalg``.
+"""
+from __future__ import annotations
+
+import functools
+import logging
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .cuda_kernels import accumulate, apply_mass_elem, apply_vector3_elem
+from .quadrature import RULES, p2_shape
+from .triton_kernels import cheb_step
+
+# The filter needs true f32 products: TF32 (about three decimal digits)
+# stalls the Chebyshev recurrence's convergence.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+_log = logging.getLogger("pl_fem_tpu_torch.kernels")
+
+
+class GatherScatter(NamedTuple):
+    """Grid topology for the matrix-free applies.
+
+    The accumulate table is split by DOF class: the wide table covers
+    rows [0, split) (mesh vertices, valence up to ~12), the width-2
+    table rows [split, D) (P2 edge midpoints, valence exactly <= 2).
+    """
+
+    elem_dofs: torch.Tensor     # (E, 6) int32
+    idx_v: torch.Tensor         # (split, Wv) int32 flat entries e*6+l
+    valid_v: torch.Tensor       # (split, Wv) bool
+    idx_e: torch.Tensor         # (D - split, 2) int32
+    valid_e: torch.Tensor       # (D - split, 2) bool
+
+
+class QFactor(NamedTuple):
+    """Per-element quadrature factors of one design's vectorial operator."""
+
+    invJT: torch.Tensor       # (E, 2, 2) J^{-T}
+    w: torch.Tensor           # (E, Q) |detJ|-scaled quadrature weights
+    inv_eps: torch.Tensor     # (E, Q) 1/Re(eps) at quadrature points
+
+
+class QFactorSweep(NamedTuple):
+    invJT: torch.Tensor       # (E, 2, 2) shared
+    w: torch.Tensor           # (E, Q) shared
+    inv_eps: torch.Tensor     # (B, E, Q) per design
+    gp: torch.Tensor          # (E, Q, 6, 2) physical shape gradients (shared)
+
+
+def _reference_tensors():
+    qp, qw = RULES[4]
+    N, dN = p2_shape(qp)
+    return N, dN, qw
+
+
+_N_REF, _DN_REF, _QW_REF = _reference_tensors()
+
+
+@functools.lru_cache(maxsize=None)
+def _shape_table_on(device: str) -> torch.Tensor:
+    return torch.as_tensor(_N_REF, dtype=torch.float32, device=device)
+
+
+def shape_table(device) -> torch.Tensor:
+    """The (Q, 6) P2 shape values at the Dunavant-4 points, f32 on
+    ``device`` (the table the kernels take at launch)."""
+    return _shape_table_on(str(torch.device(device)))
+
+
+# ---------------------------------------------------------------------------
+# layout conversion at pass boundaries
+# ---------------------------------------------------------------------------
+
+def _fused_from_stacked(X):
+    """(3D, B, k) component-major -> (D, B, 3, k) fused-lane."""
+    CD, B, k = X.shape
+    D = CD // 3
+    return X.reshape(3, D, B, k).permute(1, 2, 0, 3).contiguous()
+
+
+def _stacked_from_fused(Xf):
+    """(D, B, 3, k) fused-lane -> (3D, B, k) component-major."""
+    D, B, C, k = Xf.shape
+    return Xf.permute(2, 0, 1, 3).reshape(C * D, B, k)
+
+
+# ---------------------------------------------------------------------------
+# operator applies on fused lanes
+# ---------------------------------------------------------------------------
+
+def _accumulate_fused(Ye, gs: GatherScatter, X=None, mask=None, park=None):
+    """(E, 6, L) element results -> (D, L) DOF sums (K2), with the
+    optional ``Y * m + park * (X - X * m)`` epilogue."""
+    return accumulate(Ye, gs.idx_v, gs.valid_v, gs.idx_e, gs.valid_e,
+                      X, mask, park)
+
+
+def _apply_vector3_fused(qs: QFactorSweep, gs: GatherScatter, mask, parks,
+                         betas, alpha, Xf):
+    """Packed A(beta_b) apply in fused-lane layout.
+
+    Xf: (D, B, 3, k) -> (D, B, 3, k); mask (D,) f32 interior mask,
+    parks and betas (B,) f32. K1 forms the element results from the
+    masked block, K2 sums them to DOFs and applies mask and park.
+    """
+    D, B, C, k = Xf.shape
+    L = B * C * k
+    Xl = Xf.reshape(D, L)
+    Xm = Xl * mask[:, None]
+    Ye = apply_vector3_elem(Xm, gs.elem_dofs, qs.gp, qs.w, qs.inv_eps,
+                            betas, float(alpha), shape_table(Xf.device), k)
+    pk = parks.repeat_interleave(C * k)
+    return _accumulate_fused(Ye, gs, Xl, mask, pk).reshape(D, B, C, k)
+
+
+def _apply_mass_fused(qs: QFactorSweep, gs: GatherScatter, mask, Xl,
+                      park: float = 1.0):
+    """Plain-mass apply on fused lanes: (D, L) -> (D, L) (K3 then K2)."""
+    D, L = Xl.shape
+    Xm = Xl * mask[:, None]
+    Ye = apply_mass_elem(Xm, gs.elem_dofs, qs.w, shape_table(Xl.device))
+    pk = torch.full((L,), float(park), dtype=Xl.dtype, device=Xl.device)
+    return _accumulate_fused(Ye, gs, Xl, mask, pk)
+
+
+def _apply_binv_fused(qs: QFactorSweep, gs: GatherScatter, mask, dinv_sqrt,
+                      lo, hi, Xl, degree: int):
+    """Chebyshev B^{-1} semi-iteration on fused lanes (Jacobi-scaled mass
+    with spectrum bounds [lo, hi])."""
+    ds = dinv_sqrt[:, None]
+
+    def scaled(V):
+        return ds * _apply_mass_fused(qs, gs, mask, ds * V)
+
+    theta = 0.5 * (hi + lo)
+    delta = 0.5 * (hi - lo)
+    sigma1 = theta / delta
+    Yh = ds * Xl
+    Z = torch.zeros_like(Yh)
+    R = Yh
+    Dd = R / theta
+    rho = 1.0 / sigma1
+    for _ in range(degree):
+        Z = Z + Dd
+        R = R - scaled(Dd)
+        rho_new = 1.0 / (2.0 * sigma1 - rho)
+        Dd = rho_new * rho * Dd + (2.0 * rho_new / delta) * R
+        rho = rho_new
+    return ds * (Z + Dd)
+
+
+# ---------------------------------------------------------------------------
+# the Chebyshev filter
+# ---------------------------------------------------------------------------
+
+def _sweep_apply_t(qs, gs, mask, dinv_sqrt, lo, hi, parks, betas, alpha,
+                   cuts, bounds, binv_degree: int):
+    """Pieces of the shifted-scaled filter operator T = (B^{-1}A - c)/h.
+
+    Returns ``(apply_w, c, h)``: ``apply_w(V) = B^{-1} A(beta_b) V`` on
+    (D, B, 3, k) blocks and the per-design centre and half-width of the
+    damped interval [cut, bound]; K4 (``cheb_step``) forms
+    T V = (W - c V) / h and the recurrence from them.
+
+    ``binv_degree == 0`` selects the HRZ-lumped mass inverse (one
+    elementwise scale per step); callers widen ``bounds`` by
+    _LUMP_BOUND then.
+    """
+    if binv_degree == 0:
+        ilump = (dinv_sqrt * dinv_sqrt / _HRZ_SCALE)[:, None, None, None]
+
+        def binv_f(Vf):
+            return Vf * ilump
+    else:
+        def binv_f(Vf):
+            D, B, C, k = Vf.shape
+            return _apply_binv_fused(qs, gs, mask, dinv_sqrt, lo, hi,
+                                     Vf.reshape(D, B * C * k),
+                                     binv_degree).reshape(D, B, C, k)
+
+    c = (0.5 * (bounds + cuts)).to(torch.float32).contiguous()
+    h = (0.5 * (bounds - cuts)).to(torch.float32).contiguous()
+
+    def apply_w(Vf):
+        return binv_f(_apply_vector3_fused(qs, gs, mask, parks, betas,
+                                           alpha, Vf))
+
+    return apply_w, c, h
+
+
+def _sweep_iterate(apply_w, c, h, T0, T1, steps: int, renorm_every: int):
+    """``steps`` recurrence steps T2 = 2 T(T1) - T0 (K4), with the
+    per-(design, column) renorm every ``renorm_every`` steps."""
+    for i in range(steps):
+        do = (i % renorm_every) == (renorm_every - 1)
+        T2 = cheb_step(apply_w(T1), T1, T0, c, h, renorm=do)
+        T0, T1 = T1, T2
+    return T0, T1
+
+
+def cheb_sweep_filter(qs, gs, mask, dinv_sqrt, lo, hi, parks, betas, alpha,
+                      Xf, cuts, bounds, degree: int, binv_degree: int = 4,
+                      renorm_every: int = 8):
+    """Degree-``degree`` Chebyshev filter of the fused block Xf
+    (D, B, 3, k): T1 = T(Xf), then ``degree - 1`` recurrence steps.
+    Returns the filtered block."""
+    apply_w, c, h = _sweep_apply_t(qs, gs, mask, dinv_sqrt, lo, hi, parks,
+                                   betas, alpha, cuts, bounds, binv_degree)
+    T0 = Xf
+    T1 = cheb_step(apply_w(T0), T0, None, c, h)
+    _, T1 = _sweep_iterate(apply_w, c, h, T0, T1, degree - 1, renorm_every)
+    return T1
+
+
+def cheb_sweep_rr_impl(qs, gs, mask, parks, betas, alpha, Xff):
+    """Rayleigh-Ritz tail on a filtered fused-lane subspace.
+
+    Per-design QR, one packed A and one mass apply, the k x k Gram
+    matrices (symmetrized, with a 1e-6 trace shift on G), Cholesky,
+    the generalized eigh, Ritz vectors and relative residuals.
+    Returns theta (B, k), Xr (3D, B, k) and res (B, k).
+    """
+    D, B, _, k = Xff.shape
+    Xf = _stacked_from_fused(Xff)                      # (3D, B, k)
+    Q = torch.linalg.qr(Xf.permute(1, 0, 2))[0]        # (B, 3D, k)
+    Qp = Q.permute(1, 0, 2).contiguous()               # (3D, B, k)
+    Qf = _fused_from_stacked(Qp)
+    AQ = _stacked_from_fused(_apply_vector3_fused(qs, gs, mask, parks, betas,
+                                                  alpha, Qf))
+    BQ = _stacked_from_fused(_apply_mass_fused(
+        qs, gs, mask, Qf.reshape(D, 3 * B * k)).reshape(D, B, 3, k))
+    H = torch.einsum("dbk,dbl->bkl", Qp, AQ)
+    G = torch.einsum("dbk,dbl->bkl", Qp, BQ)
+    H = 0.5 * (H + H.transpose(1, 2))
+    G = 0.5 * (G + G.transpose(1, 2))
+    eye = torch.eye(k, dtype=G.dtype, device=G.device)
+    G = G + (1e-6 * torch.diagonal(G, dim1=1, dim2=2).sum(-1)[:, None, None]
+             / k) * eye[None]
+    Lc = torch.linalg.cholesky(G)
+    Hw = torch.linalg.solve_triangular(Lc, H, upper=False)
+    Hw = torch.linalg.solve_triangular(Lc, Hw.transpose(1, 2), upper=False)
+    Hw = 0.5 * (Hw + Hw.transpose(1, 2))
+    theta, Wv = torch.linalg.eigh(Hw)
+    Ys = torch.linalg.solve_triangular(Lc.transpose(1, 2), Wv, upper=True)
+    Xr = torch.einsum("dbk,bkl->dbl", Qp, Ys)
+    AXr = torch.einsum("dbk,bkl->dbl", AQ, Ys)
+    BXr = torch.einsum("dbk,bkl->dbl", BQ, Ys)
+    Rs = AXr - BXr * theta[None]
+    res = (torch.linalg.vector_norm(Rs, dim=0)
+           / (torch.linalg.vector_norm(AXr, dim=0) + 1e-30))
+    return theta, Xr, res
+
+
+def _sweep_gate_maxres(theta, res, cuts, n_wanted: int = 0):
+    """Worst residual among the wanted sub-cut modes, or the minimum
+    residual if nothing is wanted yet (one scalar for the pass gate)."""
+    wanted = theta < cuts[:, None]
+    if n_wanted > 0:
+        cols = torch.arange(theta.shape[1], device=theta.device)
+        wanted = wanted & (cols[None, :] < n_wanted)
+    if bool(wanted.any()):
+        return float(res[wanted].max())
+    return float(res.min())
+
+
+def solve_lowest_sweep(qs: QFactorSweep, gs, mask, diag_B, X0, cuts, betas,
+                       alpha, bounds, degree: int = 300, passes: int = 2,
+                       tol: float = 1e-7, max_passes: int = 8, parks=None,
+                       binv_degree: int = 4, n_wanted: int = 0):
+    """Adaptive pass driver for the packed same-grid sweep.
+
+    X0 (3D, B, k), a tensor or a numpy array, is moved to the device of
+    ``qs``. cuts, betas, bounds and parks are (B,) per-design values.
+    Each pass filters with ``degree`` steps and runs the Rayleigh-Ritz;
+    after ``passes`` passes the driver stops once the worst wanted
+    residual is below max(tol, 5e-6) or improves by less than 30%.
+    Returns theta (B, k), Xr (3D, B, k) and res (B, k).
+    """
+    dev = qs.w.device
+    f32 = torch.float32
+
+    def vec(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float32), device=dev)
+
+    eff_tol = max(tol, 5e-6)
+    dinv_sqrt = (1.0 / torch.sqrt(torch.clamp(diag_B.to(f32), min=1e-30)))
+    lo, hi = np.float32(MASS_LO), np.float32(MASS_HI)
+    cuts = vec(cuts)
+    betas = vec(betas)
+    parks = vec(parks) if parks is not None else 10.0 * cuts
+    bounds = vec(bounds)
+    if binv_degree == 0:
+        bounds = bounds * np.float32(_LUMP_BOUND)
+    bounds = torch.maximum(bounds, parks * np.float32(1.05))
+    X = torch.as_tensor(X0, device=dev).to(f32)
+    theta = Xr = res = None
+    prev = np.inf
+    for ip in range(max_passes):
+        t0 = time.perf_counter()
+        Xf = cheb_sweep_filter(qs, gs, mask, dinv_sqrt, lo, hi, parks, betas,
+                               float(alpha), _fused_from_stacked(X), cuts,
+                               bounds, degree=degree, binv_degree=binv_degree)
+        theta, Xr, res = cheb_sweep_rr_impl(qs, gs, mask, parks, betas,
+                                            float(alpha), Xf)
+        X = Xr
+        if ip + 1 >= passes:
+            maxres = _sweep_gate_maxres(theta, res, cuts, n_wanted=n_wanted)
+            _log.debug("sweep pass %d (deg %d, binv %d): %.2fs maxres=%.2e",
+                       ip, degree, binv_degree, time.perf_counter() - t0,
+                       maxres)
+            if maxres < eff_tol or maxres > 0.7 * prev:
+                break
+            prev = maxres
+    return theta, Xr, res
+
+
+# ---------------------------------------------------------------------------
+# spectrum bounds (deterministic, per-element Rayleigh quotients)
+# ---------------------------------------------------------------------------
+#
+# For affine P2 elements the local mass is EXACTLY |detJ| * B_ref with a
+# constant 6x6 reference mass (Dunavant-4 integrates P2xP2 exactly), so
+# every element-local mass quantity reduces to host-precomputed
+# constants — no on-device factorizations anywhere.
+
+def _reference_mass_constants():
+    B_ref = np.einsum("q,qi,qj->ij", _QW_REF, _N_REF, _N_REF)
+    d = np.diag(B_ref)
+    S = B_ref / np.sqrt(np.outer(d, d))
+    wS = np.linalg.eigvalsh(S)
+    Linv = np.linalg.inv(np.linalg.cholesky(B_ref))
+    return B_ref, float(wS[0]), float(wS[-1]), Linv
+
+
+_B_REF, MASS_LO, MASS_HI, _LINV_REF = _reference_mass_constants()
+
+# HRZ mass lumping on the reference element: d_i = B_ref[i,i] * c_H with
+# c_H = area / trace(B_ref) (total mass preserved). The eigenvalues of
+# D_l^{-1} B_ref bound the lumped/consistent Rayleigh-quotient ratio per
+# element: [0.2485, 1.3046] for P2/Dunavant-4; _LUMP_BOUND pads the
+# upper edge for the (A, B_l) spectrum bound.
+_HRZ_SCALE = float(np.float32(_QW_REF).sum() / np.trace(_B_REF))
+_LUMP_BOUND = 1.40
+
+
+def pencil_bounds_elem(Abig, Bblk, elem_valid, C: int = 1):
+    """Deterministic spectrum bounds from per-element quotients.
+
+        spec(D_B^{-1} B)  subset  [MASS_LO, MASS_HI]
+        |spec(B^{-1} A)|  <=  max_e |L_ref^{-1} (A_e/|detJ|_e) L_ref^{-T}|
+
+    with the last norm bounded by Gershgorin row sums of the constant-
+    congruence-transformed blocks. Returns (lo_B, hi_B, bound_A), the
+    last a 0-d tensor on the device of ``Abig``.
+    """
+    dtype = Abig.dtype
+    dev = Abig.device
+    detj = (torch.diagonal(Bblk, dim1=1, dim2=2).sum(-1)
+            / torch.as_tensor(np.trace(_B_REF), dtype=dtype, device=dev))
+    tiny = float(torch.finfo(dtype).tiny) * 1e3
+    detj = torch.where(elem_valid, torch.clamp(detj, min=tiny),
+                       torch.ones_like(detj))
+    Lref = torch.as_tensor(_LINV_REF, dtype=dtype, device=dev)
+    Linv3 = torch.block_diag(*([Lref] * C))
+    W = torch.einsum("ij,ejk,lk->eil", Linv3, Abig / detj[:, None, None],
+                     Linv3)
+    rows = W.abs().sum(dim=2).amax(dim=1)                  # (E,) Gershgorin
+    bound_A = torch.where(elem_valid, rows, torch.zeros_like(rows)).max() \
+        * 1.02
+    return np.float32(MASS_LO), np.float32(MASS_HI), bound_A

@@ -1,0 +1,46 @@
+"""Phase timers.
+
+The reference's observability is wall-clock fields in each record and
+per-module loggers (SURVEY.md §5). This module provides the structured
+equivalent: a PhaseTimer that accumulates named phase durations (fed
+into DatasetRecord timing fields and DEBUG logs).
+"""
+from __future__ import annotations
+
+import contextlib
+import logging
+import time
+from typing import Dict
+
+logger = logging.getLogger("pl_fem_tpu_torch.profiling")
+
+
+class PhaseTimer:
+    """Accumulate named wall-clock phases.
+
+    >>> t = PhaseTimer()
+    >>> with t.phase("mesh"):
+    ...     build_mesh()
+    >>> t.times["mesh"]
+    """
+
+    def __init__(self):
+        self.times: Dict[str, float] = {}
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            self.times[name] = self.times.get(name, 0.0) + dt
+            logger.debug("phase %-12s %.3f s", name, dt)
+
+    @property
+    def total(self) -> float:
+        return sum(self.times.values())
+
+    def summary(self) -> str:
+        return " | ".join(f"{k}={v:.2f}s" for k, v in self.times.items())
+

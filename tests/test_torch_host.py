@@ -1,0 +1,145 @@
+"""Port parity, host layer: the PyTorch package's copied host modules
+produce the JAX package's mesh, device-grid arrays and f64 host operator
+data bit for bit, and the port imports without jax.
+
+Reference analog: the mesh and CSR pencil the reference hands to ARPACK
+(the reference's mesh.py, solver_fem.py:129-175).
+"""
+import dataclasses
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from pl_fem_tpu.config import MeshConfig as JMeshConfig
+from pl_fem_tpu.config import SimulationConfig as JSimulationConfig
+from pl_fem_tpu.models import MCFGeometry as JMCFGeometry
+from pl_fem_tpu.ops.femgrid import MeshGenerator as JMeshGenerator
+from pl_fem_tpu.ops.femgrid import export_device_grid as j_export
+from pl_fem_tpu.ops.host_assembly import \
+    build_host_vector3_family as j_family
+from pl_fem_tpu_torch.config import (MeshConfig, SimulationConfig,
+                                     SolverConfig, solver_preset)
+from pl_fem_tpu_torch.models import MCFGeometry
+from pl_fem_tpu_torch.ops.femgrid import MeshGenerator, export_device_grid
+from pl_fem_tpu_torch.ops.host_assembly import build_host_vector3_family
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module")
+def grids():
+    """The same small config-1 mesh (7-core hex) from both packages."""
+    args = (7, 8.0, 1.5, 1.535, 1.0)
+    jcfg = JSimulationConfig(mesh_min_points=400, mesh_target_points=1600,
+                             mesh=JMeshConfig(bucket_rounding=256))
+    cfg = SimulationConfig(mesh_min_points=400, mesh_target_points=1600,
+                           mesh=MeshConfig(bucket_rounding=256))
+    jg = JMCFGeometry(*args, wavelength_um=1.55)
+    g = MCFGeometry(*args, wavelength_um=1.55)
+    jdg = j_export(JMeshGenerator.generate(jg, 0.3, jcfg), 256)
+    dg = export_device_grid(MeshGenerator.generate(g, 0.3, cfg), 256)
+    return jg, jdg, g, dg
+
+
+def test_device_grid_bit_equal(grids):
+    _, jdg, _, dg = grids
+    names = [f.name for f in dataclasses.fields(dg)]
+    assert names == [f.name for f in dataclasses.fields(jdg)]
+    for name in names:
+        a, b = getattr(jdg, name), getattr(dg, name)
+        if isinstance(a, np.ndarray):
+            assert a.dtype == b.dtype and a.shape == b.shape, name
+            assert np.array_equal(a, b), name
+        else:
+            assert a == b, name
+
+
+def test_host_family_csr_bit_equal(grids):
+    jg, jdg, g, dg = grids
+    jf = j_family(jdg, jg.eps_params(), 1.0)
+    f = build_host_vector3_family(dg, g.eps_params(), 1.0)
+    assert np.array_equal(jf.pat.indptr, f.pat.indptr)
+    assert np.array_equal(jf.pat.indices, f.pat.indices)
+    for name in ("d_core", "d_clad", "d_u"):
+        assert np.array_equal(getattr(jf, name), getattr(f, name)), name
+    for name in ("M3", "Dxx", "Dyy", "Dxy", "Msig"):
+        a, b = getattr(jf, name), getattr(f, name)
+        assert (a != b).nnz == 0, name
+
+
+def test_solver_config_trimmed_and_presets():
+    names = {f.name for f in dataclasses.fields(SolverConfig)}
+    for dropped in ("scalar_maxiter", "dtype_filter", "dtype_rr",
+                    "apply_layout", "accumulate", "xfer_dtype"):
+        assert dropped not in names
+    assert SolverConfig().backend == "device"
+    assert solver_preset("fast").beta_passes == 1
+    bal = solver_preset("balanced", cheb_degree=200)
+    assert (bal.beta_passes, bal.polish_qres_tol, bal.qres_max_rounds,
+            bal.cheb_degree) == (2, 2.5e-4, 2, 200)
+    with pytest.raises(ValueError):
+        solver_preset("turbo")
+
+
+def test_unknown_backend_raises(grids):
+    from pl_fem_tpu_torch.solvers import TrueVectorialMaxwellSolver
+
+    _, _, g, dg = grids
+    for backend in ("tpu", "hybrid"):
+        cfg = SimulationConfig(solver=SolverConfig(backend=backend,
+                                                   device="cpu"))
+        with pytest.raises(ValueError, match="backend"):
+            TrueVectorialMaxwellSolver.solve_sweep([g], dg, 4, cfg)
+
+
+_BLOCK_JAX = """
+import sys
+
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib", "pl_fem_tpu"):
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, _Block())
+import pl_fem_tpu_torch
+import pl_fem_tpu_torch.solvers.vectorial
+import pl_fem_tpu_torch.ops.kernels
+import pl_fem_tpu_torch.ops.triton_kernels
+import pl_fem_tpu_torch.ops.cuda_kernels
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "pl_fem_tpu"))
+assert not bad, bad
+assert pl_fem_tpu_torch.TrueVectorialMaxwellSolver.__name__ == \\
+    "TrueVectorialMaxwellSolver"
+print("ok")
+"""
+
+
+def test_port_imports_without_jax():
+    """The port's modules import in a process where jax and the JAX
+    package cannot be imported at all."""
+    out = subprocess.run([sys.executable, "-c", _BLOCK_JAX], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_port_sources_name_no_jax():
+    for path in (REPO / "pl_fem_tpu_torch").rglob("*.py"):
+        for line in path.read_text().splitlines():
+            s = line.strip()
+            assert not s.startswith(("import jax", "from jax",
+                                     "import pl_fem_tpu ",
+                                     "from pl_fem_tpu ",
+                                     "from pl_fem_tpu.")), (path, line)
+    smoke = (REPO / "chip_smoke.py").read_text()
+    assert "import jax" not in smoke and "from jax" not in smoke
+    assert "from pl_fem_tpu." not in smoke

@@ -1,0 +1,187 @@
+"""Port parity, filter kernels: the plain PyTorch twins of K1-K4 (the
+versions the wrappers run on CPU tensors) against the JAX package's
+sweep functions on the same mesh and the same numpy inputs. The
+CUDA/Triton kernels are held against these twins on the card in
+tests/test_torch_cuda.py.
+
+Tolerances:
+- single applies: <= 1e-5 of max|y| (f32, two orderings of the same
+  sums);
+- the filter (12 recurrence steps, one renorm): <= 1e-4 of max|y|, the
+  step rounding amplified by the Chebyshev growth between renorms;
+- ``solve_lowest_sweep``: the wanted Ritz values theta (below the cut)
+  to <= 1e-4 relative, from the same numpy start block.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pl_fem_tpu.config import MeshConfig, SimulationConfig
+from pl_fem_tpu.models import MCFGeometry
+from pl_fem_tpu.ops import assembly as ja
+from pl_fem_tpu.ops import kernels as jk
+from pl_fem_tpu.ops.femgrid import MeshGenerator, export_device_grid
+from pl_fem_tpu.solvers.vectorial import lp01_neff_estimate
+from pl_fem_tpu_torch.ops import assembly as ta
+from pl_fem_tpu_torch.ops import kernels as tk
+from pl_fem_tpu_torch.ops import triton_kernels as trk
+
+torch.set_num_threads(1)
+B, K = 3, 7
+
+
+def _rel(ref, y):
+    ref = np.asarray(ref, dtype=np.float64)
+    y = np.asarray(y, dtype=np.float64)
+    return np.abs(ref - y).max() / (np.abs(ref).max() + 1e-300)
+
+
+@pytest.fixture(scope="module")
+def sw():
+    """One 3-core mesh and B = 3 designs, in both packages' containers."""
+    cfg = SimulationConfig(mesh_min_points=400, mesh_target_points=1600,
+                           mesh=MeshConfig(bucket_rounding=256))
+    geoms = [MCFGeometry(3, 8.0, 1.5, 1.535, 1.0, wavelength_um=float(w))
+             for w in np.linspace(1.50, 1.60, B)]
+    dg = export_device_grid(MeshGenerator.generate(geoms[0], 0.5, cfg), 256)
+    jga = ja.grid_to_device(dg, dtype=jnp.float32)
+    jgs = ja.gather_scatter(jga)
+    invs, bounds = [], []
+    betas = np.array([g.k0 * lp01_neff_estimate(g.k0, 1.5, g.n_core,
+                                                g.n_clad) for g in geoms],
+                     np.float32)
+    for g, b in zip(geoms, betas):
+        ea = ja.eps_arrays(g.eps_params(), dtype=jnp.float32)
+        qf, diag = ja.assemble_vector3_qf(jga, ea)
+        invs.append(qf.inv_eps)
+        prim, _, _ = ja.assemble_vector3_system(jga, ea)
+        A = ja.vector3_stacked_A(prim, jnp.float32(b), jnp.float32(1.0))
+        bounds.append(float(jk.pencil_bounds_elem(A, prim["u_nn"],
+                                                  jga.elem_valid, C=3)[2]))
+    jqs = jk.QFactorSweep(invJT=qf.invJT, w=qf.w, inv_eps=jnp.stack(invs),
+                          gp=jga.grad_phys)
+    tga = ta.grid_from_numpy(dg, "cpu")
+    tqs = ta.qfactor_sweep_from_numpy(*(np.asarray(a) for a in jqs), "cpu")
+    D = dg.n_dofs_padded
+    rng = np.random.default_rng(3)
+    cuts = (betas.astype(np.float64) ** 2).astype(np.float32)
+    return dict(
+        dg=dg, jga=jga, jgs=jgs, jqs=jqs, tga=tga,
+        tgs=ta.gather_scatter(tga), tqs=tqs, D=D,
+        diag=np.asarray(diag, np.float32), betas=betas, cuts=cuts,
+        bounds=np.asarray(bounds, np.float32) * np.float32(1.1),
+        parks=(10.0 * cuts).astype(np.float32),
+        mask=np.asarray(dg.interior_mask, np.float32),
+        X=rng.standard_normal((D, B, 3, K)).astype(np.float32),
+        Ye=rng.standard_normal((dg.elem_dofs.shape[0], 6, B * 3 * K))
+        .astype(np.float32),
+        rng=rng)
+
+
+def _t(a):
+    return torch.tensor(np.asarray(a))
+
+
+def test_apply_vector3_twin_matches_jax(sw):
+    """K1 twin + K2 twin (with the mask/park epilogue) ==
+    _apply_vector3_fused."""
+    ref = jk._apply_vector3_fused(sw["jqs"], sw["jgs"], sw["jga"].interior_mask,
+                                  jnp.asarray(sw["parks"]),
+                                  jnp.asarray(sw["betas"]), jnp.float32(1.0),
+                                  jnp.asarray(sw["X"]))
+    y = tk._apply_vector3_fused(sw["tqs"], sw["tgs"], _t(sw["mask"]),
+                                _t(sw["parks"]), _t(sw["betas"]), 1.0,
+                                _t(sw["X"]))
+    assert y.shape == (sw["D"], B, 3, K)
+    assert _rel(ref, y.numpy()) <= 1e-5
+
+
+def test_accumulate_twin_matches_jax(sw):
+    ref = jk._accumulate_fused(jnp.asarray(sw["Ye"]), sw["jgs"])
+    y = tk._accumulate_fused(_t(sw["Ye"]), sw["tgs"])
+    assert _rel(ref, y.numpy()) <= 1e-5
+
+
+def test_apply_mass_twin_matches_jax(sw):
+    Xl = sw["X"].reshape(sw["D"], -1)
+    ref = jk._apply_mass_fused(sw["jqs"], sw["jgs"], sw["jga"].interior_mask,
+                               jnp.asarray(Xl))
+    y = tk._apply_mass_fused(sw["tqs"], sw["tgs"], _t(sw["mask"]), _t(Xl))
+    assert _rel(ref, y.numpy()) <= 1e-5
+
+
+@pytest.mark.parametrize("degree", [1, 4])
+def test_apply_binv_twin_matches_jax(sw, degree):
+    Xl = sw["X"].reshape(sw["D"], -1)
+    dinv = (1.0 / np.sqrt(np.maximum(sw["diag"], 1e-30))).astype(np.float32)
+    lo, hi = np.float32(jk.MASS_LO), np.float32(jk.MASS_HI)
+    ref = jk._apply_binv_fused(sw["jqs"], sw["jgs"], sw["jga"].interior_mask,
+                               jnp.asarray(dinv), jnp.float32(lo),
+                               jnp.float32(hi), jnp.asarray(Xl), degree)
+    y = tk._apply_binv_fused(sw["tqs"], sw["tgs"], _t(sw["mask"]), _t(dinv),
+                             lo, hi, _t(Xl), degree)
+    assert _rel(ref, y.numpy()) <= 1e-5
+
+
+@pytest.mark.parametrize("binv", [0, 1])
+def test_cheb_filter_matches_jax_chunk(sw, binv):
+    """T1 = T(X), then 11 recurrence steps with the K4 twin (renorm at
+    step 8) == cheb_sweep_chunk_impl(first=True, steps=12)."""
+    steps = 12
+    dinv = (1.0 / np.sqrt(np.maximum(sw["diag"], 1e-30))).astype(np.float32)
+    lo, hi = np.float32(jk.MASS_LO), np.float32(jk.MASS_HI)
+    X = jnp.asarray(sw["X"])
+    _, ref = jk.cheb_sweep_chunk_impl(
+        sw["jqs"], sw["jgs"], sw["jga"].interior_mask, jnp.asarray(dinv),
+        jnp.float32(lo), jnp.float32(hi), jnp.asarray(sw["parks"]),
+        jnp.asarray(sw["betas"]), jnp.float32(1.0), X, X,
+        jnp.asarray(sw["cuts"]), jnp.asarray(sw["bounds"]),
+        np.int32(steps), np.bool_(True), binv_degree=binv)
+    y = tk.cheb_sweep_filter(
+        sw["tqs"], sw["tgs"], _t(sw["mask"]), _t(dinv), lo, hi,
+        _t(sw["parks"]), _t(sw["betas"]), 1.0, _t(sw["X"]), _t(sw["cuts"]),
+        _t(sw["bounds"]), degree=steps, binv_degree=binv)
+    assert _rel(ref, y.numpy()) <= 1e-4
+
+
+def test_cheb_step_twin_formula():
+    """K4 twin: T2 = 2 (W - c V) / h - T0, the opening step (W - c V) / h,
+    and the renorm that rescales V in place to unit (D, 3) column norms."""
+    rng = np.random.default_rng(7)
+    W, V, T0 = (torch.as_tensor(rng.standard_normal((11, 2, 3, 4))
+                                .astype(np.float32)) for _ in range(3))
+    c = torch.tensor([1.5, -2.0])
+    h = torch.tensor([3.0, 0.5])
+    cb, hb = c[None, :, None, None], h[None, :, None, None]
+    first = trk.cheb_step(W, V, None, c, h)
+    assert torch.allclose(first, (W - cb * V) / hb)
+    step = trk.cheb_step(W, V, T0, c, h)
+    assert torch.allclose(step, 2.0 * (W - cb * V) / hb - T0)
+    V2 = V.clone()
+    ren = trk.cheb_step(W, V2, T0, c, h, renorm=True)
+    s = ren.norm(dim=(0, 2), keepdim=True)
+    assert torch.allclose(s, torch.ones_like(s), atol=1e-6)
+    assert torch.allclose(V2 / V, ren / step, rtol=1e-5)
+
+
+def test_solve_lowest_sweep_matches_jax(sw):
+    """Two filter + Rayleigh-Ritz passes from the same numpy X0: the
+    wanted Ritz values (below the cut) agree."""
+    D = sw["D"]
+    X0 = sw["rng"].standard_normal((3 * D, B, K)).astype(np.float32)
+    kw = dict(degree=40, passes=2, max_passes=2, binv_degree=4)
+    jth, _, jres = jk.solve_lowest_sweep(
+        sw["jqs"], sw["jgs"], sw["jga"].interior_mask, jnp.asarray(sw["diag"]),
+        jnp.asarray(X0), sw["cuts"], sw["betas"], 1.0, sw["bounds"],
+        parks=sw["parks"], **kw)
+    tth, tXr, tres = tk.solve_lowest_sweep(
+        sw["tqs"], sw["tgs"], _t(sw["mask"]), _t(sw["diag"]), X0,
+        sw["cuts"], sw["betas"], 1.0, sw["bounds"], parks=sw["parks"], **kw)
+    jth = np.asarray(jth)
+    assert tth.shape == (B, K) and tXr.shape == (3 * D, B, K)
+    wanted = jth < sw["cuts"][:, None]
+    assert wanted.sum() >= B
+    rel = np.abs(tth.numpy() - jth) / np.abs(jth)
+    assert rel[wanted].max() <= 1e-4
+    assert np.isfinite(tres.numpy()).all()
