@@ -24,17 +24,32 @@ In order:
 5. solves a single-core step fiber (r 1.5 um, n_core 1.53, air clad)
    through the same path and holds HE11's n_eff to the exact vector
    dispersion (ops/analytic.vector_modes) within 1e-3 relative, the
-   fast-mode accuracy class.
+   fast-mode accuracy class;
+6. runs the dataset engine through the port's CLI at the production
+   settings of configs/r5_dataset.yaml (fast mode, 9000-18000 mesh
+   points, bucket band 0.20, sweep engine with the 2-bucket pipeline,
+   seed 42, quality threshold 0.35) plus 5 CMT slices, on 8 of the
+   config's 220 samples (the one cut), into a temporary directory
+   removed afterwards. It checks the records (8 lines,
+   every validated sample solved in a bucket sweep, at least one
+   success with finite mux/demux losses, a CMT IL and a power
+   conservation in (0, 1.05]), that K1-K4 launched during the run, and
+   that a second run on the same directory solves nothing; then it holds
+   each kernel against its twin at the largest (B, k) the engine used,
+   on a mesh at the engine's settings.
 
-It prints the per-kernel JSON line, then, last, the device line. Any
-failure raises and the script exits non-zero.
+It prints the per-kernel JSON line, then the card's name and power
+limit, then, last, the device line. Any failure raises and the script
+exits non-zero.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -46,6 +61,9 @@ FIBER_MESH_MIN = 9000        # ~50k DOFs: the fiber at the production scale
 FIBER_REFINE = 1.5
 KERNEL_RTOL = 1e-5           # of max|y|, f32 kernel vs f32 twin
 FIBER_RTOL = 1e-3            # HE11 n_eff vs exact, fast-mode class
+REPO = Path(__file__).resolve().parent
+DATASET_N = 8                # of the 220 samples of configs/r5_dataset.yaml
+DATASET_CMT_SLICES = 5
 
 
 def _card() -> str:
@@ -71,6 +89,10 @@ def _event_ms(fn, reps: int = 10) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def _finite(*xs) -> bool:
+    return all(x is not None and math.isfinite(x) for x in xs)
+
+
 def _compare(name, kernel_fn, plain_fn):
     """Run kernel and twin on the same inputs; return (err, ms, plain_ms)."""
     import torch
@@ -91,55 +113,17 @@ def _compare(name, kernel_fn, plain_fn):
     return err, ms, plain_ms
 
 
-def main() -> int:
-    import numpy as np
+def _kernel_checks(dg, geoms, k, dev):
+    """Each kernel against its plain twin on ``dg`` with B = len(geoms)
+    designs and k columns; returns {name: (err, ms, plain_ms)}."""
     import torch
 
-    if not torch.cuda.is_available():
-        raise RuntimeError("chip_smoke.py needs a CUDA device; "
-                           "torch.cuda.is_available() is False")
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from pl_fem_tpu_torch.config import (MeshConfig, SimulationConfig,
-                                         SolverConfig)
-    from pl_fem_tpu_torch.models import MCFGeometry
     from pl_fem_tpu_torch.ops import cuda_kernels as ck
     from pl_fem_tpu_torch.ops import triton_kernels as tk
-    from pl_fem_tpu_torch.ops.analytic import vector_modes
     from pl_fem_tpu_torch.ops.assembly import (assemble_vector3_qf,
                                                eps_arrays, gather_scatter,
                                                grid_to_device)
-    from pl_fem_tpu_torch.ops.femgrid import (MeshGenerator,
-                                              export_device_grid)
     from pl_fem_tpu_torch.ops.kernels import QFactorSweep, shape_table
-    from pl_fem_tpu_torch.solvers import TrueVectorialMaxwellSolver
-
-    card = _card()
-    print(f"card: {card}", flush=True)
-    dev = torch.device("cuda")
-    t_start = time.perf_counter()
-
-    # -- 2. build -------------------------------------------------------
-    t0 = time.perf_counter()
-    ck.build(verbose=True)
-    print(f"kernel build (nvcc, sm_90a): {time.perf_counter() - t0:.1f} s",
-          flush=True)
-
-    # -- 3. kernels against their twins at the main path's shapes -------
-    def make_geom(wl):
-        return MCFGeometry(7, 8.0, 1.5, 1.535, 1.0, wavelength_um=wl)
-
-    cfg = SimulationConfig(
-        mesh_min_points=MESH_MIN, mesh_target_points=MESH_MIN,
-        mesh=MeshConfig(bucket_rounding=1024),
-        solver=SolverConfig(device="cuda", cheb_degree=200, cheb_passes=2,
-                            beta_passes=1))
-    t0 = time.perf_counter()
-    grid = MeshGenerator.generate(make_geom(1.55), REFINE, cfg)
-    dg = export_device_grid(grid, 1024)
-    print(f"mesh: {grid.n_points} points, {grid.n_dofs} DOFs, "
-          f"{grid.n_elems} elements, bucket {dg.bucket} "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
-    geoms = [make_geom(float(wl)) for wl in np.linspace(1.50, 1.64, N_SWEEP)]
 
     ga = grid_to_device(dg, dev)
     gs = gather_scatter(ga)
@@ -149,7 +133,7 @@ def main() -> int:
         invs.append(qf.inv_eps)
     qs = QFactorSweep(invJT=qf.invJT, w=qf.w, inv_eps=torch.stack(invs),
                       gp=ga.grad_phys)
-    B, k = N_SWEEP, N_MODES + cfg.solver.extra_vectors
+    B = len(geoms)
     D = dg.n_dofs_padded
     L = B * 3 * k
     gen = torch.Generator(device=dev)
@@ -194,7 +178,58 @@ def main() -> int:
     _compare("K4 cheb_step (plain step)",
              lambda: tk.cheb_step(W, T1, T0, c, h),
              lambda: tk.cheb_step_plain(W, T1, T0, c, h))
-    del Ye, W, T1, T0, X, Xm, qs, ga, gs, invs
+    return results
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke.py needs a CUDA device; "
+                           "torch.cuda.is_available() is False")
+    sys.path.insert(0, str(REPO))
+    from pl_fem_tpu_torch import cli
+    from pl_fem_tpu_torch.config import (MeshConfig, SimulationConfig,
+                                         SolverConfig)
+    from pl_fem_tpu_torch.models import MCFGeometry
+    from pl_fem_tpu_torch.ops import cuda_kernels as ck
+    from pl_fem_tpu_torch.ops import triton_kernels as tk
+    from pl_fem_tpu_torch.ops.analytic import vector_modes
+    from pl_fem_tpu_torch.ops.femgrid import (MeshGenerator,
+                                              export_device_grid)
+    from pl_fem_tpu_torch.solvers import TrueVectorialMaxwellSolver
+
+    card = _card()
+    print(f"card: {card}", flush=True)
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+
+    # -- 2. build -------------------------------------------------------
+    t0 = time.perf_counter()
+    ck.build(verbose=True)
+    print(f"kernel build (nvcc, sm_90a): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # -- 3. kernels against their twins at the main path's shapes -------
+    def make_geom(wl):
+        return MCFGeometry(7, 8.0, 1.5, 1.535, 1.0, wavelength_um=wl)
+
+    cfg = SimulationConfig(
+        mesh_min_points=MESH_MIN, mesh_target_points=MESH_MIN,
+        mesh=MeshConfig(bucket_rounding=1024),
+        solver=SolverConfig(device="cuda", cheb_degree=200, cheb_passes=2,
+                            beta_passes=1))
+    t0 = time.perf_counter()
+    grid = MeshGenerator.generate(make_geom(1.55), REFINE, cfg)
+    dg = export_device_grid(grid, 1024)
+    print(f"mesh: {grid.n_points} points, {grid.n_dofs} DOFs, "
+          f"{grid.n_elems} elements, bucket {dg.bucket} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    geoms = [make_geom(float(wl)) for wl in np.linspace(1.50, 1.64, N_SWEEP)]
+
+    results = _kernel_checks(dg, geoms, N_MODES + cfg.solver.extra_vectors,
+                             dev)
     torch.cuda.empty_cache()
 
     # -- 4. the main path: warm-up, then timed --------------------------
@@ -259,6 +294,88 @@ def main() -> int:
     if not rel <= FIBER_RTOL:
         raise AssertionError(f"fiber HE11 rel err {rel:.2e} > {FIBER_RTOL}")
 
+    # -- 6. the dataset engine through the CLI at the r5 settings -------
+    launches_sweep = launches
+    out_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_dataset_")
+    out_dir = Path(out_tmp.name)
+    argv = ["--config", str(REPO / "configs" / "r5_dataset.yaml"),
+            "--n", str(DATASET_N), "--out", str(out_dir),
+            "--cmt-slices", str(DATASET_CMT_SLICES)]
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen, records = cli.run(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    lines = (out_dir / "records.jsonl").read_text().splitlines()
+    solved = [r for r in records if r.success_physics]
+    print(f"dataset engine (configs/r5_dataset.yaml, {DATASET_N} of its 220 "
+          f"samples, {DATASET_CMT_SLICES} CMT slices): {len(records)} "
+          f"records, {len(solved)} validated, {len(gen.bucket_sizes)} "
+          f"buckets with designs per bucket {gen.bucket_sizes}; "
+          f"{wall:.1f} s wall = {3600.0 * len(solved) / wall:.1f} "
+          f"designs/hour (host clock); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    print("dataset phase seconds, summed over designs: " + json.dumps(
+        {p: round(v, 3) for p, v in gen.phase_times.items()}), flush=True)
+    print(f"launches in the dataset run: {json.dumps(launches)}", flush=True)
+    for r in records:
+        print(f"  {r.sample_id}: success={r.success} modes={r.n_modes_found} "
+              f"n_eff_max={r.n_eff_max:.6f} IL_mux={r.IL_phys_mux_dB} "
+              f"IL_CMT_mux={r.IL_CMT_mux_dB} "
+              f"power_mux={r.power_conservation_mux} "
+              f"error={r.error_msg} warnings={r.warnings}", flush=True)
+    if len(lines) != DATASET_N:
+        raise AssertionError(f"records.jsonl holds {len(lines)} lines, "
+                             f"expected {DATASET_N}")
+    for r in solved:
+        if r.solver_mode != "bucketed_sweep" or r.n_dofs <= 0:
+            raise AssertionError(f"{r.sample_id} passed validation but was "
+                                 f"not solved in a bucket sweep: "
+                                 f"{r.error_msg}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the "
+                                 f"dataset engine")
+    good = [r for r in records if r.success and _finite(
+        r.IL_phys_mux_dB, r.MDL_phys_mux_dB, r.PDL_mux_dB,
+        r.crosstalk_mux_dB, r.IL_phys_demux_dB, r.MDL_phys_demux_dB,
+        r.PDL_demux_dB, r.crosstalk_demux_dB, r.IL_CMT_mux_dB)
+        and r.power_conservation_mux is not None
+        and 0.0 < r.power_conservation_mux <= 1.05]
+    if not good:
+        raise AssertionError("no record succeeded with finite losses, a "
+                             "CMT IL and a power conservation in (0, 1.05]")
+    print(f"records with finite losses and CMT: {len(good)}/{len(records)}",
+          flush=True)
+
+    # resume: the same run on the same directory solves nothing
+    for fn in wrappers.values():
+        fn.launches = 0
+    cli.run(argv)
+    again = (out_dir / "records.jsonl").read_text().splitlines()
+    out_tmp.cleanup()
+    relaunched = {name: fn.launches for name, fn in wrappers.items()}
+    print(f"resume run: {len(again)} lines, launches "
+          f"{json.dumps(relaunched)}", flush=True)
+    if again != lines or any(relaunched.values()):
+        raise AssertionError("the resumed run re-simulated samples")
+
+    # each kernel at the largest (B, k) the engine used, on a mesh at the
+    # engine's settings: bucket sweeps take ceil(2.8 n_cores) + 12
+    # columns, the CMT sweeps n_modes_found + 12 for their 5 slices
+    k_ds = max(max(math.ceil(2.8 * r.n_cores), r.n_modes_found)
+               for r in solved) + gen.config.solver.extra_vectors
+    b_ds = max(max(gen.bucket_sizes), DATASET_CMT_SLICES)
+    ds_grid = MeshGenerator.generate(make_geom(1.55), 1.0, gen.config)
+    ds_dg = export_device_grid(ds_grid, gen.config.mesh.bucket_rounding)
+    results_ds = _kernel_checks(
+        ds_dg, [make_geom(float(w)) for w in np.linspace(1.53, 1.61, b_ds)],
+        k_ds, dev)
+    torch.cuda.empty_cache()
+
     src = "pl_fem_tpu_torch/ops/"
     meta = {
         "apply_vector3_elem": ("cuda", src + "csrc/apply_vector3.cu",
@@ -273,9 +390,15 @@ def main() -> int:
     kernels = []
     for name, (route, source, replaces) in meta.items():
         err, ms, plain_ms = results[name]
-        kernels.append({"name": name, "route": route, "source": source,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+        err_ds, ms_ds, plain_ds = results_ds[name]
+        kernels.append({
+            "name": name, "route": route, "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "launches_by_path": {"sweep": launches_sweep[name],
+                                 "dataset": launches[name]},
+            "dataset_shape": {"B": b_ds, "k": k_ds, "max_abs_err": err_ds,
+                              "ms": ms_ds, "plain_ms": plain_ds}})
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -4,7 +4,9 @@ PyTorch, with hand-written CUDA and Triton kernels for NVIDIA Hopper.
 A port of the JAX package ``pl_fem_tpu`` (which stays the reference):
 host meshing and export, device assembly, the packed same-grid
 Chebyshev-filter eigensolver and the host f64 polish of the vectorial
-H-field modes. It imports neither jax nor ``pl_fem_tpu``.
+H-field modes, the loss model and CMT (``physics``), the dataset engine
+(``dataset``) and its CLI (``python -m pl_fem_tpu_torch.cli``). It
+imports neither jax nor ``pl_fem_tpu``.
 
 The solver device is explicit: ``SolverConfig.device`` (default
 ``"cuda"``). On CUDA tensors the filter runs the kernels in

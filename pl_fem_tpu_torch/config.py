@@ -294,7 +294,11 @@ def load_config_file(path) -> dict:
     """
     import pathlib
 
-    import yaml
+    try:
+        import yaml
+    except ImportError as e:
+        raise ImportError(f"reading the config file {path} needs PyYAML, "
+                          f"which is not installed") from e
 
     text = pathlib.Path(path).read_text()
     data = yaml.safe_load(text)

@@ -29,10 +29,15 @@ sums into one pass, so W is never written back in a scaled form and
 T2 is read again only on renorm steps (one in eight).
 
 Triton is imported, and the kernels are built, inside the first launch,
-so this module imports on hosts without Triton.
+so this module imports on hosts without Triton. The launches hold a
+lock: the dataset engine runs two sweeps at once from two threads, and a
+launch that meets a new specialisation compiles it, which must happen
+once and not in two threads at a time. A launch only enqueues work, so
+the lock costs the other thread microseconds outside a compile.
 """
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import torch
@@ -42,6 +47,7 @@ _BL = 128         # lanes per tile
 _BP = 64          # (design, column) pairs per _colnorm program
 _RCH = 128        # row blocks per _colnorm program
 _KERNELS: dict = {}
+_LOCK = threading.Lock()
 
 
 def cheb_step_plain(W, V, T0: Optional[torch.Tensor], c, h,
@@ -134,11 +140,11 @@ def _build():
         tl.store(T1 + offs, t1 * s[None, :], mask=m)
         tl.store(T2 + offs, t2 * s[None, :], mask=m)
 
-    return {"triton": triton, "step": _step, "colnorm": _colnorm,
-            "rescale": _rescale}
+    return {"step": _step, "colnorm": _colnorm, "rescale": _rescale}
 
 
 def _kernels():
+    """The built kernels; call with ``_LOCK`` held."""
     if not _KERNELS:
         _KERNELS.update(_build())
     return _KERNELS
@@ -171,24 +177,26 @@ def cheb_step(W, V, T0: Optional[torch.Tensor], c, h, renorm: bool = False):
                              f"!= {tuple(W.shape)}")
     if c.shape != (B,) or h.shape != (B,):
         raise ValueError("c and h must be (B,) per-design vectors")
-    kn = _kernels()
     L = B * 3 * k
     out = torch.empty_like(W)
-    nrb = kn["triton"].cdiv(D, _BD)
-    grid = (nrb, kn["triton"].cdiv(L, _BL))
+    nrb = -(-D // _BD)
+    grid = (nrb, -(-L // _BL))
     P = torch.empty((nrb, L), dtype=torch.float32, device=dev) \
         if renorm else out
-    kn["step"][grid](W, V, W if T0 is None else T0, c, h, out, P, D, L,
-                     LB=3 * k, FIRST=T0 is None, RENORM=renorm,
-                     BD=_BD, BL=_BL)
-    if renorm:
-        nch = kn["triton"].cdiv(nrb, _RCH)
-        P2 = torch.empty((nch, B * k), dtype=torch.float32, device=dev)
-        kn["colnorm"][(kn["triton"].cdiv(B * k, _BP), nch)](
-            P, P2, nrb, L, B * k, K=k, BP=_BP, RCH=_RCH, BR=32)
-        kn["rescale"][grid](V, out, P2, nch, B * k, D, L, K=k, BD=_BD,
-                            BL=_BL)
-    cheb_step.launches += 1
+    nch = -(-nrb // _RCH)
+    P2 = torch.empty((nch, B * k), dtype=torch.float32, device=dev) \
+        if renorm else out
+    with _LOCK:
+        kn = _kernels()
+        kn["step"][grid](W, V, W if T0 is None else T0, c, h, out, P, D, L,
+                         LB=3 * k, FIRST=T0 is None, RENORM=renorm,
+                         BD=_BD, BL=_BL)
+        if renorm:
+            kn["colnorm"][(-(-(B * k) // _BP), nch)](
+                P, P2, nrb, L, B * k, K=k, BP=_BP, RCH=_RCH, BR=32)
+            kn["rescale"][grid](V, out, P2, nch, B * k, D, L, K=k, BD=_BD,
+                                BL=_BL)
+        cheb_step.launches += 1
     return out
 
 

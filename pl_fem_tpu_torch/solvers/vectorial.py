@@ -22,8 +22,10 @@ tensor of a solve is created there.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
+import threading
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -172,19 +174,45 @@ def _device_of(cfg: SimulationConfig) -> torch.device:
     return dev
 
 
+# threads inside solve_sweep -> nesting depth (the bootstrap and the
+# sub-sweep split call solve_sweep again from the same thread)
+_SWEEP_THREADS: Dict[int, int] = {}
+_SWEEP_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def _sweep_running():
+    """Mark this thread as running a sweep for the memory budget."""
+    tid = threading.get_ident()
+    with _SWEEP_LOCK:
+        _SWEEP_THREADS[tid] = _SWEEP_THREADS.get(tid, 0) + 1
+    try:
+        yield
+    finally:
+        with _SWEEP_LOCK:
+            _SWEEP_THREADS[tid] -= 1
+            if not _SWEEP_THREADS[tid]:
+                del _SWEEP_THREADS[tid]
+
+
 def _designs_per_sweep(dev: torch.device, E_pad: int, Dp: int,
                        k: int) -> int:
     """Most designs one packed sweep may hold on ``dev``.
 
     Per design the filter holds the (E, 6, 3k) element block and about
-    six (D, 3k) state arrays in f32; half the free device memory is the
+    six (D, 3k) state arrays in f32. Half the free device memory is the
     budget, the rest is margin for the allocator and the Rayleigh-Ritz
-    temporaries. No split on the CPU."""
+    temporaries, and the half is shared equally by the threads running
+    sweeps at the time (the dataset engine's bucket pipeline runs two):
+    each thread sees the same free memory, so each taking half would
+    leave no margin. No split on the CPU."""
     if dev.type != "cuda":
         return 1 << 30
     free, _ = torch.cuda.mem_get_info(dev)
+    with _SWEEP_LOCK:
+        n_threads = max(1, len(_SWEEP_THREADS))
     per_design = 4 * 3 * k * (6 * E_pad + 6 * Dp)
-    return max(1, int(0.5 * free) // per_design)
+    return max(1, int(0.5 * free) // (per_design * n_threads))
 
 
 def _max_rounds(beta_passes: int, qres_max_rounds: Optional[int]) -> int:
@@ -359,7 +387,17 @@ class TrueVectorialMaxwellSolver:
         for the bootstrap seed's blend. Both exist so that tests can feed this
         package and the JAX package the same numbers; by default they
         come from a ``torch.Generator`` seeded with ``SolverConfig.seed``.
+
+        Safe to call from several threads at once (the dataset engine's
+        bucket pipeline): the device-memory budget is shared among them.
         """
+        with _sweep_running():
+            return cls._solve_sweep(geometries, grid, n_modes_target,
+                                    config, _raw_modes, diag_out, X0, noise)
+
+    @classmethod
+    def _solve_sweep(cls, geometries, grid, n_modes_target, config,
+                     _raw_modes, diag_out, X0, noise):
         from ..utils import PhaseTimer
 
         timer = PhaseTimer()

@@ -114,6 +114,10 @@ import pl_fem_tpu_torch.solvers.vectorial
 import pl_fem_tpu_torch.ops.kernels
 import pl_fem_tpu_torch.ops.triton_kernels
 import pl_fem_tpu_torch.ops.cuda_kernels
+import pl_fem_tpu_torch.physics
+import pl_fem_tpu_torch.physics.cmt
+import pl_fem_tpu_torch.dataset
+import pl_fem_tpu_torch.cli
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "pl_fem_tpu"))
 assert not bad, bad
@@ -124,8 +128,9 @@ print("ok")
 
 
 def test_port_imports_without_jax():
-    """The port's modules import in a process where jax and the JAX
-    package cannot be imported at all."""
+    """The port's modules (solver, kernels, physics, dataset engine and
+    CLI) import in a process where jax and the JAX package cannot be
+    imported at all."""
     out = subprocess.run([sys.executable, "-c", _BLOCK_JAX], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
