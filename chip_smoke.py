@@ -14,7 +14,14 @@ In order:
    pitch 8 um, n_core 1.535, air clad; ~15k points, ~60k P2 DOFs),
    checks each kernel against its plain PyTorch twin at the main path's
    shapes (B = 8 designs, k = 22 columns) to within 1e-5 of max|y|, and
-   times both with CUDA events;
+   times both with CUDA events beside the kernel's bound (the bytes the
+   function must move at 3.35 TB/s, or its f32 operations at 67
+   TFLOP/s) and, where one PyTorch call computes the same function, that
+   call (a cuSPARSE SpMM for K2 without epilogue and for K3); K2 also
+   at L = 1 on the mass diagonal's element terms, as
+   ``assemble_vector3_qf`` feeds it; K3 in plain mode and as B^-1 of
+   degree 1 and 4, which must launch it exactly `degree` times and
+   repeat bit for bit;
 4. runs the main path twice, warm-up then timed:
    ``TrueVectorialMaxwellSolver.solve_sweep`` over 8 wavelengths
    1.50-1.64 um in fast mode (cheb_degree 200, cheb_passes 2,
@@ -38,9 +45,10 @@ In order:
    each kernel against its twin at the largest (B, k) the engine used,
    on a mesh at the engine's settings.
 
-It prints the per-kernel JSON line, then the card's name and power
-limit, then, last, the device line. Any failure raises and the script
-exits non-zero.
+The config-1 and r5 workloads are defined in
+``pl_fem_tpu_torch/workloads.py``. It prints the per-kernel JSON line,
+then the card's name and power limit, then, last, the device line. Any
+failure raises and the script exits non-zero.
 """
 from __future__ import annotations
 
@@ -53,17 +61,18 @@ import tempfile
 import time
 from pathlib import Path
 
-N_SWEEP = 8
-N_MODES = 10
-MESH_MIN = 15000
-REFINE = 2.2
 FIBER_MESH_MIN = 9000        # ~50k DOFs: the fiber at the production scale
 FIBER_REFINE = 1.5
 KERNEL_RTOL = 1e-5           # of max|y|, f32 kernel vs f32 twin
+# the H100's published peaks (SXM, 700 W): HBM3 bytes/s, f32 FLOP/s
+# outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+# K1's f32 operations per (element, design, column, quadrature point):
+# values and gradients 108, curl / divergence terms 17, pull-back 108
+K1_FLOPS_PER_POINT = 233
 FIBER_RTOL = 1e-3            # HE11 n_eff vs exact, fast-mode class
 REPO = Path(__file__).resolve().parent
-DATASET_N = 8                # of the 220 samples of configs/r5_dataset.yaml
-DATASET_CMT_SLICES = 5
 
 
 def _card() -> str:
@@ -93,8 +102,10 @@ def _finite(*xs) -> bool:
     return all(x is not None and math.isfinite(x) for x in xs)
 
 
-def _compare(name, kernel_fn, plain_fn):
-    """Run kernel and twin on the same inputs; return (err, ms, plain_ms)."""
+def _compare(name, kernel_fn, plain_fn, bound, library_fn=None):
+    """Run kernel and twin on the same inputs, then time both (and the
+    library yardstick, if any). ``bound`` is (bytes, flops) of the
+    function; returns the kernel's row of the JSON line."""
     import torch
 
     y = kernel_fn()
@@ -107,35 +118,89 @@ def _compare(name, kernel_fn, plain_fn):
                              f"{KERNEL_RTOL:g} * max|y| = {scale:.3e}")
     ms = _event_ms(kernel_fn)
     plain_ms = _event_ms(plain_fn)
+    library_ms = None if library_fn is None else _event_ms(library_fn)
+    nbytes, flops = bound
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    lib = "" if library_ms is None else f"  library {library_ms:.3f} ms"
     print(f"  {name}: max_abs_err={err:.3e} (max|y|={scale:.3e}, limit "
           f"{KERNEL_RTOL:g} of max|y|)  kernel {ms:.3f} ms  plain "
-          f"{plain_ms:.3f} ms", flush=True)
-    return err, ms, plain_ms
+          f"{plain_ms:.3f} ms{lib}  bound {bound_ms:.3f} ms "
+          f"({100.0 * bound_ms / ms:.0f}% of it)", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms}
+
+
+def _mass_csr(gs, w, N, mask, park):
+    """The assembled f32 CSR of M~ = diag(m) M diag(m) + park diag(1 - m)
+    from the element coefficients: the SpMM yardstick beside K3 (the
+    port never calls it)."""
+    import torch
+
+    D = mask.shape[0]
+    C = torch.einsum("eq,qi,qj->eij", w, N, N)
+    ed = gs.elem_dofs.long()
+    rows = ed[:, :, None].expand_as(C).reshape(-1)
+    cols = ed[:, None, :].expand_as(C).reshape(-1)
+    vals = (C * mask[ed][:, :, None] * mask[ed][:, None, :]).reshape(-1)
+    diag = torch.arange(D, device=mask.device)
+    M = torch.sparse_coo_tensor(
+        torch.stack([torch.cat([rows, diag]), torch.cat([cols, diag])]),
+        torch.cat([vals, park * (1.0 - mask)]), (D, D)).coalesce()
+    return M.to_sparse_csr()
+
+
+def _scatter_csr(gs, E):
+    """The 0/1 element -> DOF CSR (D x 6E) of the transpose tables: the
+    SpMM yardstick beside K2 without its epilogue."""
+    import torch
+
+    dev = gs.idx_v.device
+    split, Wv = gs.idx_v.shape
+    rows = torch.cat([
+        torch.arange(split, device=dev)[:, None].expand(split, Wv)
+        [gs.valid_v],
+        split + torch.arange(gs.idx_e.shape[0], device=dev)[:, None]
+        .expand(-1, 2)[gs.valid_e]])
+    cols = torch.cat([gs.idx_v[gs.valid_v], gs.idx_e[gs.valid_e]]).long()
+    S = torch.sparse_coo_tensor(torch.stack([rows, cols]),
+                                torch.ones(rows.shape[0], device=dev),
+                                (split + gs.idx_e.shape[0], 6 * E))
+    return S.coalesce().to_sparse_csr()
 
 
 def _kernel_checks(dg, geoms, k, dev):
     """Each kernel against its plain twin on ``dg`` with B = len(geoms)
-    designs and k columns; returns {name: (err, ms, plain_ms)}."""
+    designs and k columns; returns {name: row} with each row's error,
+    kernel / twin / library times and bound."""
+    import numpy as np
     import torch
 
     from pl_fem_tpu_torch.ops import cuda_kernels as ck
+    from pl_fem_tpu_torch.ops import kernels as tkn
     from pl_fem_tpu_torch.ops import triton_kernels as tk
     from pl_fem_tpu_torch.ops.assembly import (assemble_vector3_qf,
                                                eps_arrays, gather_scatter,
                                                grid_to_device)
-    from pl_fem_tpu_torch.ops.kernels import QFactorSweep, shape_table
+    from pl_fem_tpu_torch.ops.kernels import _N_REF, QFactorSweep, shape_table
 
     ga = grid_to_device(dg, dev)
     gs = gather_scatter(ga)
     invs = []
     for g in geoms:
-        qf, _ = assemble_vector3_qf(ga, eps_arrays(g.eps_params(), dev))
+        qf, diag = assemble_vector3_qf(ga, eps_arrays(g.eps_params(), dev))
         invs.append(qf.inv_eps)
     qs = QFactorSweep(invJT=qf.invJT, w=qf.w, inv_eps=torch.stack(invs),
                       gp=ga.grad_phys)
     B = len(geoms)
     D = dg.n_dofs_padded
+    E = dg.elem_dofs.shape[0]
+    Q = qs.w.shape[1]
     L = B * 3 * k
+    split, Wv = gs.idx_v.shape
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     X = torch.randn((D, L), generator=gen, device=dev)
@@ -153,32 +218,92 @@ def _kernel_checks(dg, geoms, k, dev):
     T0 = torch.randn((D, B, 3, k), generator=gen, device=dev)
     c = torch.linspace(100.0, 120.0, B, device=dev)
     h = torch.linspace(900.0, 1000.0, B, device=dev)
-    print(f"kernel checks at D={D} E={dg.elem_dofs.shape[0]} B={B} k={k} "
-          f"L={L}:", flush=True)
-    results = {
-        "apply_vector3_elem": _compare(
-            "K1 apply_vector3_elem",
-            lambda: ck.apply_vector3_elem(Xm, *elem),
-            lambda: ck.apply_vector3_elem_plain(Xm, *elem)),
-        "accumulate": _compare(
-            "K2 accumulate",
-            lambda: ck.accumulate(Ye, *tables, X, mask, park),
-            lambda: ck.accumulate_plain(Ye, *tables, X, mask, park)),
-        "apply_mass_elem": _compare(
-            "K3 apply_mass_elem",
-            lambda: ck.apply_mass_elem(Xm, gs.elem_dofs, qs.w, N),
-            lambda: ck.apply_mass_elem_plain(Xm, gs.elem_dofs, qs.w, N)),
-        "cheb_step": _compare(
-            "K4 cheb_step (renorm step)",
-            lambda: tk.cheb_step(W, T1.clone(), T0, c, h, renorm=True),
-            lambda: tk.cheb_step_plain(W, T1.clone(), T0, c, h,
-                                       renorm=True)),
-    }
+    dinv = 1.0 / torch.sqrt(diag)
+    lo, hi = np.float32(tkn.MASS_LO), np.float32(tkn.MASS_HI)
+    # bytes of the operands every function reads once: a (D, L) block,
+    # the transpose tables (int32 index + bool flag per slot), the
+    # element tables K3 reads (dofs, weights), the mass mask / scale
+    blk = 4 * D * L
+    tab = 5 * (split * Wv + 2 * (D - split))
+    mtab = tab + 4 * E * 6 + 4 * E * Q + 4 * Q * 6 + 4 * D + 4 * D
+    print(f"kernel checks at D={D} E={E} B={B} k={k} L={L}:", flush=True)
+    res = {}
+    res["apply_vector3_elem"] = _compare(
+        "K1 apply_vector3_elem",
+        lambda: ck.apply_vector3_elem(Xm, *elem),
+        lambda: ck.apply_vector3_elem_plain(Xm, *elem),
+        (blk + 4 * (E * 6 + E * Q * 13 + B * E * Q + B + Q * 6)
+         + 4 * E * 6 * L, K1_FLOPS_PER_POINT * E * Q * B * k))
+    res["accumulate"] = _compare(
+        "K2 accumulate (epilogue)",
+        lambda: ck.accumulate(Ye, *tables, X, mask, park),
+        lambda: ck.accumulate_plain(Ye, *tables, X, mask, park),
+        (4 * E * 6 * L + tab + 2 * blk + 4 * D + 4 * L, 0))
+    S = _scatter_csr(gs, E)
+    Yflat = Ye.view(6 * E, L)
+    bare = _compare(
+        "K2 accumulate (no epilogue)",
+        lambda: ck.accumulate(Ye, *tables),
+        lambda: ck.accumulate_plain(Ye, *tables),
+        (4 * E * 6 * L + tab + blk, 0),
+        lambda: torch.sparse.mm(S, Yflat))
+    # the SpMM computes K2 without its epilogue: it is that row's yardstick
+    res["accumulate"]["no_epilogue"] = bare
+    # the mass diagonal's element terms sum_q w N_i^2, as
+    # assemble_vector3_qf builds them: K2's L = 1 row-per-thread path
+    n2 = torch.as_tensor(_N_REF, dtype=torch.float32, device=dev) ** 2
+    Yd = torch.einsum("eq,qi->ei", qs.w, n2)[:, :, None].contiguous()
+    res["accumulate"]["diagonal"] = _compare(
+        "K2 accumulate (L = 1, mass diagonal)",
+        lambda: ck.accumulate(Yd, *tables),
+        lambda: ck.accumulate_plain(Yd, *tables),
+        (4 * E * 6 + tab + 4 * D, 0),
+        lambda: torch.sparse.mm(S, Yd.view(6 * E, 1)))
+    del S, Yflat
+
+    Mt = _mass_csr(gs, qs.w, N, mask, 50.0)
+    spmm_err = float((torch.sparse.mm(Mt, X) - tkn._apply_mass_fused_plain(
+        qs, gs, mask, X, 50.0)).abs().max())
+    print(f"  SpMM yardstick of K3: {Mt._nnz()} nonzeros, max|SpMM - twin| "
+          f"= {spmm_err:.3e}", flush=True)
+    res["mass_apply"] = _compare(
+        "K3 mass_apply (plain mode)",
+        lambda: tkn._apply_mass_fused(qs, gs, mask, X, 50.0),
+        lambda: tkn._apply_mass_fused_plain(qs, gs, mask, X, 50.0),
+        (2 * blk + mtab, 0), lambda: torch.sparse.mm(Mt, X))
+    del Mt
+    y = tkn._apply_mass_fused(qs, gs, mask, X, 50.0)
+    if not torch.equal(y, tkn._apply_mass_fused(qs, gs, mask, X, 50.0)):
+        raise AssertionError("K3 plain mode is not bitwise repeatable")
+    for degree in (1, 4):
+        args = (qs, gs, mask, dinv, lo, hi, X, degree)
+        n0 = ck.mass_apply.launches
+        y = tkn._apply_binv_fused(*args)
+        n = ck.mass_apply.launches - n0
+        if n != degree:
+            raise AssertionError(f"B^-1 of degree {degree} launched K3 "
+                                 f"{n} times")
+        if not torch.equal(y, tkn._apply_binv_fused(*args)):
+            raise AssertionError(f"B^-1 of degree {degree} is not bitwise "
+                                 f"repeatable")
+        # the function reads W once and writes its result once
+        res["mass_apply"][f"binv_degree{degree}"] = _compare(
+            f"K3 B^-1 degree {degree} ({degree} launches)",
+            lambda: tkn._apply_binv_fused(*args),
+            lambda: tkn._apply_binv_fused_plain(*args),
+            (2 * blk + mtab, 0))
+    res["cheb_step"] = _compare(
+        "K4 cheb_step (renorm step)",
+        lambda: tk.cheb_step(W, T1.clone(), T0, c, h, renorm=True),
+        lambda: tk.cheb_step_plain(W, T1.clone(), T0, c, h, renorm=True),
+        (5 * blk + 8 * B, 0))
     # the plain step (no renorm) is the one run 7 of every 8 steps
-    _compare("K4 cheb_step (plain step)",
-             lambda: tk.cheb_step(W, T1, T0, c, h),
-             lambda: tk.cheb_step_plain(W, T1, T0, c, h))
-    return results
+    res["cheb_step"]["plain_step"] = _compare(
+        "K4 cheb_step (plain step)",
+        lambda: tk.cheb_step(W, T1, T0, c, h),
+        lambda: tk.cheb_step_plain(W, T1, T0, c, h),
+        (4 * blk + 8 * B, 0))
+    return res
 
 
 def main() -> int:
@@ -190,8 +315,7 @@ def main() -> int:
                            "torch.cuda.is_available() is False")
     sys.path.insert(0, str(REPO))
     from pl_fem_tpu_torch import cli
-    from pl_fem_tpu_torch.config import (MeshConfig, SimulationConfig,
-                                         SolverConfig)
+    from pl_fem_tpu_torch import workloads as wl
     from pl_fem_tpu_torch.models import MCFGeometry
     from pl_fem_tpu_torch.ops import cuda_kernels as ck
     from pl_fem_tpu_torch.ops import triton_kernels as tk
@@ -212,47 +336,37 @@ def main() -> int:
           flush=True)
 
     # -- 3. kernels against their twins at the main path's shapes -------
-    def make_geom(wl):
-        return MCFGeometry(7, 8.0, 1.5, 1.535, 1.0, wavelength_um=wl)
-
-    cfg = SimulationConfig(
-        mesh_min_points=MESH_MIN, mesh_target_points=MESH_MIN,
-        mesh=MeshConfig(bucket_rounding=1024),
-        solver=SolverConfig(device="cuda", cheb_degree=200, cheb_passes=2,
-                            beta_passes=1))
     t0 = time.perf_counter()
-    grid = MeshGenerator.generate(make_geom(1.55), REFINE, cfg)
-    dg = export_device_grid(grid, 1024)
+    cfg, grid, dg, geoms = wl.config1_sweep()
     print(f"mesh: {grid.n_points} points, {grid.n_dofs} DOFs, "
           f"{grid.n_elems} elements, bucket {dg.bucket} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
-    geoms = [make_geom(float(wl)) for wl in np.linspace(1.50, 1.64, N_SWEEP)]
 
-    results = _kernel_checks(dg, geoms, N_MODES + cfg.solver.extra_vectors,
-                             dev)
+    results = _kernel_checks(dg, geoms,
+                             wl.N_MODES + cfg.solver.extra_vectors, dev)
     torch.cuda.empty_cache()
 
     # -- 4. the main path: warm-up, then timed --------------------------
     wrappers = {"apply_vector3_elem": ck.apply_vector3_elem,
                 "accumulate": ck.accumulate,
-                "apply_mass_elem": ck.apply_mass_elem,
+                "mass_apply": ck.mass_apply,
                 "cheb_step": tk.cheb_step}
     Solver = TrueVectorialMaxwellSolver
     t0 = time.perf_counter()
-    Solver.solve_sweep(geoms, dg, N_MODES, cfg)
+    Solver.solve_sweep(geoms, dg, wl.N_MODES, cfg)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     for fn in wrappers.values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    sweep = Solver.solve_sweep(geoms, dg, N_MODES, cfg)
+    sweep = Solver.solve_sweep(geoms, dg, wl.N_MODES, cfg)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in wrappers.items()}
     phases = {p: round(s, 3) for p, s in Solver.last_sweep_times.items()}
     print(f"sweep warm-up: {warm_s:.1f} s; timed: {dt:.2f} s = "
-          f"{dt / N_SWEEP:.3f} s/design; peak device memory "
+          f"{dt / wl.N_SWEEP:.3f} s/design; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     print(f"phases (s): {json.dumps(phases)}", flush=True)
     print(f"modes per design: {[len(m) for m in sweep]}", flush=True)
@@ -298,9 +412,7 @@ def main() -> int:
     launches_sweep = launches
     out_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_dataset_")
     out_dir = Path(out_tmp.name)
-    argv = ["--config", str(REPO / "configs" / "r5_dataset.yaml"),
-            "--n", str(DATASET_N), "--out", str(out_dir),
-            "--cmt-slices", str(DATASET_CMT_SLICES)]
+    argv = wl.dataset_argv(out_dir)
     for fn in wrappers.values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -311,8 +423,8 @@ def main() -> int:
     launches = {name: fn.launches for name, fn in wrappers.items()}
     lines = (out_dir / "records.jsonl").read_text().splitlines()
     solved = [r for r in records if r.success_physics]
-    print(f"dataset engine (configs/r5_dataset.yaml, {DATASET_N} of its 220 "
-          f"samples, {DATASET_CMT_SLICES} CMT slices): {len(records)} "
+    print(f"dataset engine (configs/r5_dataset.yaml, {wl.DATASET_N} of its "
+          f"220 samples, {wl.DATASET_CMT_SLICES} CMT slices): {len(records)} "
           f"records, {len(solved)} validated, {len(gen.bucket_sizes)} "
           f"buckets with designs per bucket {gen.bucket_sizes}; "
           f"{wall:.1f} s wall = {3600.0 * len(solved) / wall:.1f} "
@@ -327,9 +439,9 @@ def main() -> int:
               f"IL_CMT_mux={r.IL_CMT_mux_dB} "
               f"power_mux={r.power_conservation_mux} "
               f"error={r.error_msg} warnings={r.warnings}", flush=True)
-    if len(lines) != DATASET_N:
+    if len(lines) != wl.DATASET_N:
         raise AssertionError(f"records.jsonl holds {len(lines)} lines, "
-                             f"expected {DATASET_N}")
+                             f"expected {wl.DATASET_N}")
     for r in solved:
         if r.solver_mode != "bucketed_sweep" or r.n_dofs <= 0:
             raise AssertionError(f"{r.sample_id} passed validation but was "
@@ -368,11 +480,12 @@ def main() -> int:
     # columns, the CMT sweeps n_modes_found + 12 for their 5 slices
     k_ds = max(max(math.ceil(2.8 * r.n_cores), r.n_modes_found)
                for r in solved) + gen.config.solver.extra_vectors
-    b_ds = max(max(gen.bucket_sizes), DATASET_CMT_SLICES)
-    ds_grid = MeshGenerator.generate(make_geom(1.55), 1.0, gen.config)
+    b_ds = max(max(gen.bucket_sizes), wl.DATASET_CMT_SLICES)
+    ds_grid = MeshGenerator.generate(wl.config1_geom(1.55), 1.0, gen.config)
     ds_dg = export_device_grid(ds_grid, gen.config.mesh.bucket_rounding)
     results_ds = _kernel_checks(
-        ds_dg, [make_geom(float(w)) for w in np.linspace(1.53, 1.61, b_ds)],
+        ds_dg,
+        [wl.config1_geom(float(w)) for w in np.linspace(1.53, 1.61, b_ds)],
         k_ds, dev)
     torch.cuda.empty_cache()
 
@@ -382,23 +495,21 @@ def main() -> int:
                                "pl_fem_tpu/ops/kernels.py:453"),
         "accumulate": ("cuda", src + "csrc/accumulate.cu",
                        "pl_fem_tpu/ops/kernels.py:426"),
-        "apply_mass_elem": ("cuda", src + "csrc/apply_mass.cu",
-                            "pl_fem_tpu/ops/kernels.py:605"),
+        "mass_apply": ("cuda", src + "csrc/mass_apply.cu",
+                       "pl_fem_tpu/ops/kernels.py:605, "
+                       "pl_fem_tpu/ops/kernels.py:640"),
         "cheb_step": ("triton", src + "triton_kernels.py",
                       "pl_fem_tpu/ops/kernels.py:702"),
     }
     kernels = []
     for name, (route, source, replaces) in meta.items():
-        err, ms, plain_ms = results[name]
-        err_ds, ms_ds, plain_ds = results_ds[name]
         kernels.append({
             "name": name, "route": route, "source": source,
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **results[name],
             "launches_by_path": {"sweep": launches_sweep[name],
                                  "dataset": launches[name]},
-            "dataset_shape": {"B": b_ds, "k": k_ds, "max_abs_err": err_ds,
-                              "ms": ms_ds, "plain_ms": plain_ds}})
+            "dataset_shape": {"B": b_ds, "k": k_ds, **results_ds[name]}})
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

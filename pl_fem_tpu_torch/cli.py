@@ -97,9 +97,10 @@ def describe(records, columns=STAT_COLUMNS) -> str:
     return "\n".join(lines)
 
 
-def run(argv=None):
-    """Parse ``argv``, generate the dataset, log its statistics; return
-    ``(generator, records)``. :func:`main` is this with exit code 0."""
+def generator(argv=None):
+    """Parse ``argv`` and set up its run: the logger (into
+    ``<out>/run.log``) and the DatasetGenerator. Returns
+    ``(generator, args)``."""
     parser = argparse.ArgumentParser(
         description="Generate a photonic-lantern dataset "
                     "(modes + losses + CMT)")
@@ -169,6 +170,14 @@ def run(argv=None):
         base_seed=args.seed,
         out_dir=out_dir,
     )
+    return gen, args
+
+
+def run(argv=None):
+    """Parse ``argv``, generate the dataset, log its statistics; return
+    ``(generator, records)``. :func:`main` is this with exit code 0."""
+    gen, args = generator(argv)
+    logger = logging.getLogger("pl_fem_tpu_torch")
     if args.adaptive_rounds >= 2:
         records = gen.generate_adaptive(
             args.n, n_rounds=args.adaptive_rounds,

@@ -15,6 +15,7 @@ from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakTensorKeyDictionary
 
 from ..models.geometry import EpsParams
 
@@ -100,6 +101,121 @@ class EpsArrays(NamedTuple):
     pml_order: torch.Tensor
 
 
+MASS_ROWS = 32        # DOF rows per block of the mass kernel (kRows)
+
+
+class MassPlan(NamedTuple):
+    """The mass kernel's per-grid plan (``mass_plan``).
+
+    Block b owns the rows ``order[b*R:(b+1)*R]`` (R = MASS_ROWS, the
+    last block padded with empty rows). It stages its halo, the DOF
+    rows its entries gather, once per lane chunk, and each owned row
+    sums its transpose-table entries in table order from there.
+    """
+
+    order: torch.Tensor      # (D,) int32 Morton walk of the DOF rows
+    halo: torch.Tensor       # (NB, H) int32 the block's gathered rows, -1 pad
+    n_halo: torch.Tensor     # (NB,) int32
+    row_ptr: torch.Tensor    # (NB * R + 1,) int32 entry offsets per position
+    ent: torch.Tensor        # (n_entries,) int32 flat e * 6 + i, table order
+    loc: torch.Tensor        # (n_entries, 6) int16 halo slot of dof(e, j)
+    max_entries: int         # the most entries one block holds
+
+
+_PLANS = WeakTensorKeyDictionary()
+
+
+def _spread_bits(v):
+    """The low 16 bits of ``v`` (int64) moved to the even bit positions."""
+    v = (v | (v << 8)) & 0x00FF00FF
+    v = (v | (v << 4)) & 0x0F0F0F0F
+    v = (v | (v << 2)) & 0x33333333
+    return (v | (v << 1)) & 0x55555555
+
+
+def dof_row_order(dof_coords: torch.Tensor) -> torch.Tensor:
+    """The Morton (Z-curve) order of the DOF rows: (D,) int32, a
+    permutation of range(D), on the device of ``dof_coords`` (D, 2).
+
+    Coordinates are quantised to 16 bits per axis over their bounding
+    box; ties keep storage order (stable sort), so the order is
+    deterministic. Consecutive rows of it are neighbours in the mesh.
+    """
+    xy = dof_coords.to(torch.float32)
+    lo = xy.amin(dim=0)
+    span = torch.clamp(xy.amax(dim=0) - lo, min=1e-30)
+    q = torch.clamp(torch.round((xy - lo) / span * 65535.0), 0, 65535)
+    q = q.to(torch.int64)
+    code = _spread_bits(q[:, 0]) | (_spread_bits(q[:, 1]) << 1)
+    return torch.sort(code, stable=True).indices.to(torch.int32)
+
+
+def mass_plan(ga: GridArrays) -> MassPlan:
+    """The mass kernel's plan for the grid of ``ga``, built once per
+    device grid (cached on its ``dof_coords`` tensor).
+
+    Rows go in ``dof_row_order`` blocks of MASS_ROWS, so a block's halo
+    is a compact patch of the mesh: about 2.6 rows per owned row on the
+    r5 dataset mesh, against the 17.8 row gathers the rows make. Inside
+    a block the rows are sorted by entry count.
+    """
+    plan = _PLANS.get(ga.dof_coords)
+    if plan is not None:
+        return plan
+    dev = ga.elem_dofs.device
+    i64 = torch.int64
+    D = ga.dof_coords.shape[0]
+    split, Wv = ga.dof_gather_v.shape
+    W = max(Wv, 2)
+    R = MASS_ROWS
+    NB = (D + R - 1) // R
+    # each row's entries, valid ones first in table order, -1 after
+    ent = torch.full((D, W), -1, dtype=i64, device=dev)
+    ent[:split, :Wv] = torch.where(ga.dof_gather_valid_v,
+                                   ga.dof_gather_v.to(i64), -1)
+    ent[split:, :2] = torch.where(ga.dof_gather_valid_e,
+                                  ga.dof_gather_e.to(i64), -1)
+    key = (ent < 0).to(i64) * W + torch.arange(W, device=dev)
+    ent = torch.gather(ent, 1, torch.argsort(key, dim=1))
+    order = dof_row_order(ga.dof_coords).to(i64)
+    ent = torch.cat([ent[order],
+                     torch.full((NB * R - D, W), -1, dtype=i64, device=dev)])
+    # within each block, rows with more entries first (stable, so the
+    # padding rows stay last): the rows a warp sums side by side then
+    # carry similar work
+    blk = torch.arange(NB * R, device=dev) // R
+    within = torch.argsort(blk * (W + 1) + W - (ent >= 0).sum(dim=1),
+                           stable=True)
+    ent = ent[within]
+    order = order[within[:D]].to(torch.int32)
+    valid = ent >= 0
+    row_ptr = torch.zeros(NB * R + 1, dtype=i64, device=dev)
+    row_ptr[1:] = torch.cumsum(valid.sum(dim=1), 0)
+    # the DOFs every entry gathers, per block: sorted, deduplicated into
+    # the halo, and each mapped to its halo slot
+    dofs = ga.elem_dofs.to(i64)[torch.clamp(ent, min=0) // 6]
+    dofs = torch.where(valid[..., None], dofs, -1).reshape(NB, R * W * 6)
+    srt, perm = torch.sort(dofs, dim=1, stable=True)
+    new = srt >= 0
+    new[:, 1:] &= srt[:, 1:] != srt[:, :-1]
+    slot = torch.cumsum(new.to(i64), dim=1) - 1
+    n_halo = new.sum(dim=1)
+    H = max(int(n_halo.max()), 1)
+    halo = torch.full((NB, H + 1), -1, dtype=i64, device=dev)
+    halo.scatter_(1, torch.where(new, slot, H), torch.where(new, srt, -1))
+    loc = torch.empty_like(dofs).scatter_(1, perm, slot)
+    loc = loc.reshape(NB * R, W, 6)[valid]
+    per_block = row_ptr[R::R] - row_ptr[:-1:R]
+    plan = MassPlan(order=order, halo=halo[:, :H].to(torch.int32).contiguous(),
+                    n_halo=n_halo.to(torch.int32),
+                    row_ptr=row_ptr.to(torch.int32),
+                    ent=ent[valid].to(torch.int32),
+                    loc=loc.to(torch.int16).contiguous(),
+                    max_entries=max(int(per_block.max()), 1))
+    _PLANS[ga.dof_coords] = plan
+    return plan
+
+
 def gather_scatter(ga: GridArrays):
     """GatherScatter topology bundle for the matrix-free kernels."""
     from .kernels import GatherScatter
@@ -107,7 +223,8 @@ def gather_scatter(ga: GridArrays):
     return GatherScatter(elem_dofs=ga.elem_dofs, idx_v=ga.dof_gather_v,
                          valid_v=ga.dof_gather_valid_v,
                          idx_e=ga.dof_gather_e,
-                         valid_e=ga.dof_gather_valid_e)
+                         valid_e=ga.dof_gather_valid_e,
+                         plan=mass_plan(ga))
 
 
 def eps_arrays(p: EpsParams, device, dtype=torch.float32) -> EpsArrays:

@@ -1,5 +1,7 @@
 """Hand-written CUDA kernels of the filter step (K1-K3), their loader and
-their plain PyTorch twins.
+their plain PyTorch twins: K1 the A(beta_b) element math, K2 the
+element -> DOF accumulate, K3 the fused DOF-centric mass apply (plain,
+or one step of the B^{-1} semi-iteration).
 
 The sources are ``ops/csrc/*.cu``. At first use on a CUDA tensor they
 are compiled with ``nvcc`` for ``sm_90a`` into one shared library with a
@@ -26,13 +28,16 @@ The (Q, 6) shape table ``N`` comes from ``ops/quadrature.py`` via
 from __future__ import annotations
 
 import ctypes
+import math
 import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
+
+from .assembly import MASS_ROWS      # rows per block, kRows of mass_apply.cu
 
 _CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -48,7 +53,7 @@ _SIGNATURES = {
                               _I, _I, _I, _I, _P, _P],
     "pl_accumulate": [_P, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _P, _P],
-    "pl_apply_mass_elem": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "pl_mass_apply": [_P] * 14 + [_F] * 4 + [_I] * 6 + [_P],
 }
 _LIB: Optional[ctypes.CDLL] = None
 _LOCK = threading.Lock()
@@ -133,6 +138,16 @@ def _require(t: torch.Tensor, name: str, dtype, device, shape=None):
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
+
+
+def _require_lanes(t: torch.Tensor, name: str, L: int):
+    """K2 and K3 load the lanes of a (rows, L) f32 block as float4,
+    float2 or scalars by L, so its start must be aligned to
+    4 * gcd(L, 4) bytes, as a row at ``row * L`` is."""
+    align = 4 * math.gcd(L, 4)
+    if t.data_ptr() % align:
+        raise ValueError(f"{name} must start on a {align}-byte boundary "
+                         f"(lane count {L})")
 
 
 def _stream(device) -> int:
@@ -273,6 +288,10 @@ def accumulate(Ye, idx_v, valid_v, idx_e, valid_e, X=None, mask=None,
         _require(X, "X", f32, dev, (D, L))
         _require(mask, "mask", f32, dev, (D,))
         _require(park, "park", f32, dev, (L,))
+    if L >= 8:                  # the lane path's vector loads (L < 8: scalar)
+        for t, name in ((Ye, "Ye"), (X, "X"), (park, "park")):
+            if t is not None:
+                _require_lanes(t, name, L)
     Y = torch.empty((D, L), dtype=f32, device=dev)
     rc = lib().pl_accumulate(
         Ye.data_ptr(), idx_v.data_ptr(), valid_v.data_ptr(),
@@ -290,39 +309,133 @@ accumulate.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K3: consistent P2 mass element math
+# K3: the fused mass apply (plain, or one B^{-1} semi-iteration step)
 # ---------------------------------------------------------------------------
 
 def apply_mass_elem_plain(Xm, elem_dofs, w, N):
-    """Plain twin of K3: Ye[e, i] = sum_j C_ij(e) Xm[dof(e, j)] with
-    C_ij(e) = sum_q w[e, q] N[q, i] N[q, j]."""
+    """Element part of K3's plain twin: Ye[e, i] = sum_j C_ij(e)
+    Xm[dof(e, j)] with C_ij(e) = sum_q w[e, q] N[q, i] N[q, j]."""
     C = torch.einsum("eq,qi,qj->eij", w, N, N)
     return torch.einsum("eij,ejl->eil", C, Xm[elem_dofs.long()])
 
 
-def apply_mass_elem(Xm, elem_dofs, w, N):
-    """K3 (``csrc/apply_mass.cu``): mass element results (E, 6, L).
+class BinvStep(NamedTuple):
+    """Operands of one degree step of the Chebyshev B^{-1}
+    semi-iteration (``mass_apply`` step mode).
 
-    Xm (D, L) f32 masked block; elem_dofs (E, 6) int32; w (E, Q); N (Q, 6).
+    With V the input block (W on the first step, else Dd) and s = ``ds``:
+    R' = R - s M~(s V), Z' = Z + V, Dd' = a V + b R'; the first step
+    takes R = s W, V = R / theta, Z = 0 from W, the last returns
+    s (Z' + Dd'). R and Z are (D, L) buffers updated in place (written
+    on the first step, read on the last; None at degree 1).
     """
-    if Xm.device.type == "cpu":
-        return apply_mass_elem_plain(Xm, elem_dofs, w, N)
-    dev = Xm.device
-    D, L = Xm.shape
-    E = elem_dofs.shape[0]
+
+    ds: torch.Tensor               # (D,) Jacobi scale 1 / sqrt(diag B)
+    R: Optional[torch.Tensor]
+    Z: Optional[torch.Tensor]
+    a: float
+    b: float
+    theta: float
+    first: bool
+    last: bool
+
+
+def mass_apply_plain(X, gs, w, N, mask, park: float = 1.0,
+                     step: Optional[BinvStep] = None):
+    """Plain twin of K3, from K3's former element pass and K2's.
+
+    Plain mode: ``m * M(m * X) + park * (X - m * X)`` (D, L). Step mode:
+    one step of the loop of ``kernels._apply_binv_fused_plain`` with the
+    same torch ops in the same order, returning Dd' (or the result on
+    the last step) and updating ``step.R`` / ``step.Z`` in place.
+    """
+    if step is None:
+        D, L = X.shape
+        Xm = X * mask[:, None]
+        Ye = apply_mass_elem_plain(Xm, gs.elem_dofs, w, N)
+        pk = torch.full((L,), float(park), dtype=X.dtype, device=X.device)
+        return accumulate_plain(Ye, gs.idx_v, gs.valid_v, gs.idx_e,
+                                gs.valid_e, X, mask, pk)
+    ds = step.ds[:, None]
+    if step.first:
+        R = ds * X
+        Z = torch.zeros_like(R)
+        Dd = R / step.theta
+    else:
+        R, Z, Dd = step.R, step.Z, X
+    Z = Z + Dd
+    R = R - ds * mass_apply_plain(ds * Dd, gs, w, N, mask, 1.0)
+    Dd = step.a * Dd + step.b * R
+    if step.last:
+        return ds * (Z + Dd)
+    step.R.copy_(R)
+    step.Z.copy_(Z)
+    return Dd
+
+
+def mass_apply(X, gs, w, N, mask, park: float = 1.0,
+               step: Optional[BinvStep] = None):
+    """K3 (``csrc/mass_apply.cu``): the masked consistent-mass apply.
+
+    X (D, L) f32; ``gs`` a GatherScatter (the kernel reads its ``plan``,
+    the per-grid row blocks, entries and halos of
+    ``assembly.mass_plan``; the twin its element and transpose tables);
+    w (E, Q); N (Q, 6); mask (D,) f32. Plain
+    mode returns ``m * M(m * X) + park * (X - m * X)``; with ``step`` it
+    runs one B^{-1} semi-iteration step (see :class:`BinvStep`) and
+    returns a new tensor, never X (other rows gather X while the kernel
+    runs).
+    """
+    if X.device.type == "cpu":
+        return mass_apply_plain(X, gs, w, N, mask, park, step)
+    dev = X.device
+    D, L = X.shape
+    E = gs.elem_dofs.shape[0]
     Q = w.shape[1]
-    f32 = torch.float32
-    _require(Xm, "Xm", f32, dev)
-    _require(elem_dofs, "elem_dofs", torch.int32, dev, (E, 6))
+    pl = gs.plan
+    NB, H = pl.halo.shape
+    n_ent = pl.ent.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    _require(X, "X", f32, dev)
+    _require_lanes(X, "X", L)
     _require(w, "w", f32, dev, (E, Q))
     _require(N, "N", f32, dev, (Q, 6))
-    Ye = torch.empty((E, 6, L), dtype=f32, device=dev)
-    rc = lib().pl_apply_mass_elem(
-        Xm.data_ptr(), elem_dofs.data_ptr(), w.data_ptr(), N.data_ptr(),
-        E, Q, L, Ye.data_ptr(), _stream(dev))
-    _check(rc, "apply_mass_elem")
-    _count(apply_mass_elem)
-    return Ye
+    _require(pl.order, "plan.order", i32, dev, (D,))
+    _require(pl.halo, "plan.halo", i32, dev)
+    _require(pl.n_halo, "plan.n_halo", i32, dev, (NB,))
+    if NB != -(-D // MASS_ROWS):
+        raise ValueError(f"plan of {NB} blocks does not cover {D} rows")
+    _require(pl.row_ptr, "plan.row_ptr", i32, dev, (NB * MASS_ROWS + 1,))
+    _require(pl.ent, "plan.ent", i32, dev)
+    _require(pl.loc, "plan.loc", torch.int16, dev, (n_ent, 6))
+    _require(mask, "mask", f32, dev, (D,))
+    ptr = {"ds": None, "R": None, "Z": None}
+    flags, a, b, theta = 0, 0.0, 0.0, 1.0
+    if step is not None:
+        flags = 1 | (2 if step.first else 0) | (4 if step.last else 0)
+        a, b, theta = float(step.a), float(step.b), float(step.theta)
+        _require(step.ds, "ds", f32, dev, (D,))
+        ptr["ds"] = step.ds.data_ptr()
+        if not (step.first and step.last):
+            for name in ("R", "Z"):
+                t = getattr(step, name)
+                if t is None:
+                    raise ValueError(f"step mode below degree 1 needs {name}")
+                _require(t, name, f32, dev, (D, L))
+                _require_lanes(t, name, L)
+                ptr[name] = t.data_ptr()
+    out = torch.empty((D, L), dtype=f32, device=dev)
+    rc = lib().pl_mass_apply(
+        X.data_ptr(), w.data_ptr(), N.data_ptr(),
+        pl.order.data_ptr(), pl.halo.data_ptr(), pl.n_halo.data_ptr(),
+        pl.row_ptr.data_ptr(), pl.ent.data_ptr(), pl.loc.data_ptr(),
+        mask.data_ptr(), ptr["ds"], ptr["R"], ptr["Z"], out.data_ptr(),
+        float(park), a, b, theta, D, H, int(pl.max_entries), Q, L,
+        flags,
+        _stream(dev))
+    _check(rc, "mass_apply")
+    _count(mass_apply)
+    return out
 
 
-apply_mass_elem.launches = 0
+mass_apply.launches = 0

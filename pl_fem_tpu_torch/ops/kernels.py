@@ -9,9 +9,12 @@ the filter interval and the park value vary per design.
 
 Every filter step runs four hand-written kernels (``cuda_kernels`` K1-K3
 and ``triton_kernels`` K4): the A(beta_b) element math (K1), the
-element->DOF accumulate with its mask/park epilogue (K2), the mass
-element math inside B^{-1} (K3) and the recurrence step (K4). The
-dense per-design Rayleigh-Ritz steps are ``torch.linalg``.
+element->DOF accumulate with its mask/park epilogue (K2), the fused
+mass apply, one launch per degree step of B^{-1} (K3), and the
+recurrence step (K4). The dense per-design Rayleigh-Ritz steps are
+``torch.linalg``. ``_apply_mass_fused_plain`` and
+``_apply_binv_fused_plain`` keep the unfused form of the mass path as
+the reference the kernel is held against.
 """
 from __future__ import annotations
 
@@ -23,7 +26,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .cuda_kernels import accumulate, apply_mass_elem, apply_vector3_elem
+from .assembly import MassPlan
+from .cuda_kernels import (BinvStep, accumulate, apply_vector3_elem,
+                           mass_apply, mass_apply_plain)
 from .quadrature import RULES, p2_shape
 from .triton_kernels import cheb_step
 
@@ -41,6 +46,8 @@ class GatherScatter(NamedTuple):
     The accumulate table is split by DOF class: the wide table covers
     rows [0, split) (mesh vertices, valence up to ~12), the width-2
     table rows [split, D) (P2 edge midpoints, valence exactly <= 2).
+    ``plan`` is the mass kernel's per-grid plan (``assembly.mass_plan``:
+    its Morton row blocks and their halos); storage order is unchanged.
     """
 
     elem_dofs: torch.Tensor     # (E, 6) int32
@@ -48,6 +55,7 @@ class GatherScatter(NamedTuple):
     valid_v: torch.Tensor       # (split, Wv) bool
     idx_e: torch.Tensor         # (D - split, 2) int32
     valid_e: torch.Tensor       # (D - split, 2) bool
+    plan: MassPlan              # the mass kernel's row blocks and halos
 
 
 class QFactor(NamedTuple):
@@ -131,28 +139,36 @@ def _apply_vector3_fused(qs: QFactorSweep, gs: GatherScatter, mask, parks,
     return _accumulate_fused(Ye, gs, Xl, mask, pk).reshape(D, B, C, k)
 
 
+def _apply_mass_fused_plain(qs: QFactorSweep, gs: GatherScatter, mask, Xl,
+                            park: float = 1.0):
+    """Plain-mass apply on fused lanes, unfused: (D, L) -> (D, L) through
+    the element pass and the accumulate twins (``mass_apply_plain``)."""
+    return mass_apply_plain(Xl, gs, qs.w, shape_table(Xl.device), mask, park)
+
+
 def _apply_mass_fused(qs: QFactorSweep, gs: GatherScatter, mask, Xl,
                       park: float = 1.0):
-    """Plain-mass apply on fused lanes: (D, L) -> (D, L) (K3 then K2)."""
-    D, L = Xl.shape
-    Xm = Xl * mask[:, None]
-    Ye = apply_mass_elem(Xm, gs.elem_dofs, qs.w, shape_table(Xl.device))
-    pk = torch.full((L,), float(park), dtype=Xl.dtype, device=Xl.device)
-    return _accumulate_fused(Ye, gs, Xl, mask, pk)
+    """Plain-mass apply on fused lanes: (D, L) -> (D, L), one K3 launch."""
+    return mass_apply(Xl, gs, qs.w, shape_table(Xl.device), mask, park)
 
 
-def _apply_binv_fused(qs: QFactorSweep, gs: GatherScatter, mask, dinv_sqrt,
-                      lo, hi, Xl, degree: int):
+def _binv_constants(lo, hi):
+    theta = 0.5 * (hi + lo)
+    delta = 0.5 * (hi - lo)
+    return theta, delta, theta / delta
+
+
+def _apply_binv_fused_plain(qs: QFactorSweep, gs: GatherScatter, mask,
+                            dinv_sqrt, lo, hi, Xl, degree: int):
     """Chebyshev B^{-1} semi-iteration on fused lanes (Jacobi-scaled mass
-    with spectrum bounds [lo, hi])."""
+    with spectrum bounds [lo, hi]), in torch ops around the unfused mass
+    apply: the reference K3's step mode is held against."""
     ds = dinv_sqrt[:, None]
 
     def scaled(V):
-        return ds * _apply_mass_fused(qs, gs, mask, ds * V)
+        return ds * _apply_mass_fused_plain(qs, gs, mask, ds * V)
 
-    theta = 0.5 * (hi + lo)
-    delta = 0.5 * (hi - lo)
-    sigma1 = theta / delta
+    theta, delta, sigma1 = _binv_constants(lo, hi)
     Yh = ds * Xl
     Z = torch.zeros_like(Yh)
     R = Yh
@@ -165,6 +181,32 @@ def _apply_binv_fused(qs: QFactorSweep, gs: GatherScatter, mask, dinv_sqrt,
         Dd = rho_new * rho * Dd + (2.0 * rho_new / delta) * R
         rho = rho_new
     return ds * (Z + Dd)
+
+
+def _apply_binv_fused(qs: QFactorSweep, gs: GatherScatter, mask, dinv_sqrt,
+                      lo, hi, Xl, degree: int):
+    """The same semi-iteration as ``degree`` K3 launches in step mode:
+    each fuses the mass apply with the step's R, Z and Dd updates, so no
+    torch elementwise op runs between them. Dd ping-pongs between fresh
+    outputs; R and Z are updated in place."""
+    if degree < 1:
+        raise ValueError(f"B^-1 degree {degree} < 1 (degree 0 is the "
+                         "lumped inverse of _sweep_apply_t)")
+    theta, delta, sigma1 = _binv_constants(lo, hi)
+    N = shape_table(Xl.device)
+    R = Z = None
+    if degree > 1:
+        R = torch.empty_like(Xl)
+        Z = torch.empty_like(Xl)
+    V = Xl
+    rho = 1.0 / sigma1
+    for i in range(degree):
+        rho_new = 1.0 / (2.0 * sigma1 - rho)
+        V = mass_apply(V, gs, qs.w, N, mask, step=BinvStep(
+            dinv_sqrt, R, Z, rho_new * rho, 2.0 * rho_new / delta, theta,
+            first=i == 0, last=i == degree - 1))
+        rho = rho_new
+    return V
 
 
 # ---------------------------------------------------------------------------

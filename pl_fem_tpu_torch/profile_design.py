@@ -1,0 +1,191 @@
+"""Device time by kernel of one warm dataset design, and the config-1
+sweep's phase seconds, on one NVIDIA GPU.
+
+    python3 pl_fem_tpu_torch/profile_design.py [--repo DIR] [--out FILE]
+
+``--repo`` names the checkout whose ``pl_fem_tpu_torch`` is measured
+(default: the one holding this file; it must have ``workloads.py`` and
+``cli.generator``), so two trees can be compared in one process per tree
+on the same card. The workloads are those of ``chip_smoke.py``, defined
+in ``pl_fem_tpu_torch/workloads.py``. Two measurements:
+
+1. the config-1 fast sweep: a warm-up, then SWEEPS timed sweeps, each
+   with its phase seconds
+   (``TrueVectorialMaxwellSolver.last_sweep_times``);
+2. the 7-core sample of the r5 dataset run's draw (the CLI's arguments
+   from ``workloads.dataset_argv``, the sweep engine): once to warm up
+   (Triton, coarse meshes), then once under ``torch.profiler``. It
+   prints the wall time, the device time (the sum of the kernel and
+   copy intervals), the device's idle share and the device time by
+   kernel family.
+
+Prints one JSON object as its last line; ``--out`` also writes it.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+SWEEPS = 3                  # timed config-1 sweeps, after one warm-up
+
+# kernel-name fragments of each family, first match wins (K3's also
+# matches its element-pass form, so older checkouts read the same)
+FAMILIES = (
+    ("K1 apply_vector3_elem", ("apply_vector3_elem",)),
+    ("K2 accumulate", ("accumulate",)),
+    ("K3 mass apply", ("mass_apply", "apply_mass_elem")),
+    ("K4 cheb_step (Triton)", ("_step", "_colnorm", "_rescale")),
+    ("torch elementwise", ("elementwise",)),
+    ("torch reductions", ("reduce_kernel", "reduction")),
+    ("copies and fills", ("memcpy", "memset")),
+    ("linear algebra (cuBLAS / cuSOLVER)",
+     ("gemm", "gemv", "cublas", "cutlass", "syevd", "geqrf", "orgqr",
+      "ormqr", "potrf", "trsm", "cusolver", "sytrd", "steqr", "xmma")),
+)
+
+
+def _family(name: str) -> str:
+    low = name.lower()
+    for fam, keys in FAMILIES:
+        if any(k.lower() in low for k in keys):
+            return fam
+    return "other"
+
+
+def _card() -> str:
+    import subprocess
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def config1_sweeps(n: int):
+    """Phase seconds of a warm-up and ``n`` timed config-1 sweeps."""
+    import torch
+
+    from pl_fem_tpu_torch import workloads as wl
+    from pl_fem_tpu_torch.solvers import TrueVectorialMaxwellSolver as S
+
+    cfg, _, dg, geoms = wl.config1_sweep()
+    runs = []
+    for i in range(n + 1):
+        t0 = time.perf_counter()
+        S.solve_sweep(geoms, dg, wl.N_MODES, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        phases = dict(S.last_sweep_times)
+        print(f"config-1 sweep {'warm-up' if i == 0 else i}: {wall:.3f} s; "
+              f"phases {json.dumps(phases)}", flush=True)
+        if i:
+            runs.append({"wall_s": wall, "phases_s": phases})
+    return {"D": int(dg.n_dofs_padded), "runs": runs}
+
+
+def dataset_design(n_cores: int = 7):
+    """The warm profile of one r5 dataset design (see the module note)."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pl_fem_tpu_torch import cli
+    from pl_fem_tpu_torch import workloads as wl
+
+    with tempfile.TemporaryDirectory(prefix="profile_design_") as tmp:
+        gen, args = cli.generator(wl.dataset_argv(tmp))
+        samples = gen.sampler.generate_stratified_samples(
+            args.n, quality_threshold=args.quality_threshold,
+            ensure_diversity=True)
+        sample = next(s for s in samples if int(s["n_cores"]) == n_cores)
+        t0 = time.perf_counter()
+        gen.simulate_bucketed([sample])
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        gen.phase_times.clear()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            rec = gen.simulate_bucketed([sample])[0]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    by_name, spans = {}, []
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        spans.append((e.time_range.start, e.time_range.end))
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + us)
+    busy, end = 0.0, None                  # union of the device intervals
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    fams = {}
+    for name, (n, t) in by_name.items():
+        f = fams.setdefault(_family(name), {"ms": 0.0, "launches": 0})
+        f["ms"] += t / 1e3
+        f["launches"] += n
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
+    out = {
+        "sample": sample.get("sample_id"), "n_cores": n_cores,
+        "n_dofs": rec.n_dofs, "success": bool(rec.success),
+        "cold_wall_s": cold, "wall_s": wall, "device_ms": busy / 1e3,
+        "device_idle_share": 1.0 - busy / 1e6 / wall,
+        "phase_s": dict(gen.phase_times),
+        "families_ms": dict(sorted(fams.items(),
+                                   key=lambda kv: -kv[1]["ms"])),
+        "top_kernels": [{"name": k[:120], "launches": n, "ms": t / 1e3}
+                        for k, (n, t) in top]}
+    print(f"dataset design {out['sample']} ({n_cores} cores, "
+          f"{rec.n_dofs} DOFs): cold {cold:.1f} s, warm {wall:.1f} s, "
+          f"device {busy / 1e3:.0f} ms, idle "
+          f"{100 * out['device_idle_share']:.1f}%", flush=True)
+    for fam, v in out["families_ms"].items():
+        print(f"  {fam}: {v['ms']:.1f} ms in {v['launches']} launches",
+              flush=True)
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--repo", default=str(HERE.parent))
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    repo = Path(args.repo).resolve()
+    if sys.path and Path(sys.path[0] or ".").resolve() == HERE:
+        sys.path.pop(0)         # run by path: the package's own modules
+                                # must not shadow top-level names
+    sys.path.insert(0, str(repo))
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_design needs a CUDA device")
+    import pl_fem_tpu_torch
+
+    card = _card()
+    print(f"card: {card}; package {Path(pl_fem_tpu_torch.__file__).parent}",
+          flush=True)
+    result = {"card": card, "repo": str(repo),
+              "config1": config1_sweeps(SWEEPS),
+              "dataset_design": dataset_design()}
+    line = json.dumps(result)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(line + "\n")
+    print(line, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

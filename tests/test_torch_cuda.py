@@ -73,17 +73,22 @@ def test_apply_vector3_elem(setup, dev):
     assert _rel(ck.apply_vector3_elem_plain(Xm, *args), y) <= 1e-5
 
 
+# L = 1 and 3 take the row-per-thread path, 21 / 22 / 24 the lane path
+# with scalar / float2 / float4 loads, 63 the filter's B * 3 * K
+@pytest.mark.parametrize("L", [1, 3, 21, 22, 24, B * 3 * K])
 @pytest.mark.parametrize("epilogue", [False, True])
-def test_accumulate(setup, dev, epilogue):
+def test_accumulate(setup, dev, epilogue, L):
     s = setup
     gs = s["gs"]
     E = gs.elem_dofs.shape[0]
-    Ye = torch.randn((E, 6, s["X"].shape[1]), generator=s["gen"], device=dev)
+    D = s["X"].shape[0]
+    Ye = torch.randn((E, 6, L), generator=s["gen"], device=dev)
     tables = (gs.idx_v, gs.valid_v, gs.idx_e, gs.valid_e)
     extra = ()
     if epilogue:
-        park = torch.full((s["X"].shape[1],), 7.0, device=dev)
-        extra = (s["X"], s["ga"].interior_mask, park)
+        park = torch.linspace(1.0, 7.0, L, device=dev)
+        extra = (torch.randn((D, L), generator=s["gen"], device=dev),
+                 s["ga"].interior_mask, park)
     y = ck.accumulate(Ye, *tables, *extra)
     assert _rel(ck.accumulate_plain(Ye, *tables, *extra), y) <= 1e-5
     # deterministic: a second launch gives the same bits
@@ -103,12 +108,37 @@ def test_mass_diagonal_single_lane(setup, dev):
     assert _rel(ref, diag) <= 1e-5
 
 
-def test_apply_mass_elem(setup, dev):
+def _check_mass(ga, gs, qs, X, dinv):
+    """K3 against its twins on the card: plain mode, and B^{-1} at degrees
+    1 and 4 through the step mode (one launch per degree); each within
+    1e-5 of max|y| and bitwise repeatable."""
+    mask = ga.interior_mask
+    lo, hi = np.float32(tk.MASS_LO), np.float32(tk.MASS_HI)
+    y = tk._apply_mass_fused(qs, gs, mask, X, 50.0)
+    assert _rel(tk._apply_mass_fused_plain(qs, gs, mask, X, 50.0), y) <= 1e-5
+    assert torch.equal(y, tk._apply_mass_fused(qs, gs, mask, X, 50.0))
+    for degree in (1, 4):
+        n0 = ck.mass_apply.launches
+        y = tk._apply_binv_fused(qs, gs, mask, dinv, lo, hi, X, degree)
+        assert ck.mass_apply.launches == n0 + degree
+        ref = tk._apply_binv_fused_plain(qs, gs, mask, dinv, lo, hi, X,
+                                         degree)
+        assert _rel(ref, y) <= 1e-5
+        assert torch.equal(y, tk._apply_binv_fused(qs, gs, mask, dinv, lo,
+                                                   hi, X, degree))
+    torch.cuda.synchronize()
+
+
+def _dinv(ga, dev):
+    _, diag = ta.assemble_vector3_qf(
+        ga, ta.eps_arrays(MCFGeometry(3, 8.0, 1.5, 1.535, 1.0).eps_params(),
+                          dev))
+    return 1.0 / torch.sqrt(diag)
+
+
+def test_mass_apply(setup, dev):
     s = setup
-    Xm = s["X"] * s["ga"].interior_mask[:, None]
-    args = (s["gs"].elem_dofs, s["qs"].w, tk.shape_table(dev))
-    y = ck.apply_mass_elem(Xm, *args)
-    assert _rel(ck.apply_mass_elem_plain(Xm, *args), y) <= 1e-5
+    _check_mass(s["ga"], s["gs"], s["qs"], s["X"], _dinv(s["ga"], dev))
 
 
 @pytest.mark.parametrize("first,renorm", [(True, False), (False, False),
@@ -145,32 +175,79 @@ def test_filter_on_card_matches_cpu(setup, dev):
     def run(d, mv):
         t = {n: torch.tensor(v, device=d) for n, v in mv.items()}
         cast = lambda a: a.to(d)                               # noqa: E731
+        ga_d = ta.GridArrays(*map(cast, ga))
         return tk.cheb_sweep_filter(
             tk.QFactorSweep(*map(cast, qs)),
-            tk.GatherScatter(*map(cast, gs)), cast(ga.interior_mask),
+            ta.gather_scatter(ga_d), ga_d.interior_mask,
             cast(dinv), lo, hi, t["parks"], cast(s["betas"]), 1.0,
             cast(X), t["cuts"], t["bounds"], degree=12, binv_degree=1)
 
     counts = [f.launches for f in (ck.apply_vector3_elem, ck.accumulate,
-                                   ck.apply_mass_elem, trk.cheb_step)]
+                                   ck.mass_apply, trk.cheb_step)]
     y = run(dev, vec)
     after = [f.launches for f in (ck.apply_vector3_elem, ck.accumulate,
-                                  ck.apply_mass_elem, trk.cheb_step)]
+                                  ck.mass_apply, trk.cheb_step)]
     assert all(a > b for a, b in zip(after, counts))
     assert _rel(run("cpu", vec), y) <= 1e-4
 
 
-def test_wrappers_refuse_bad_input(dev):
+def test_wrappers_refuse_bad_input(setup, dev):
     """A CUDA tensor never reaches a twin: input the kernel does not
     take raises."""
-    x = torch.zeros((8, 12), device=dev, dtype=torch.float64)
-    ed = torch.zeros((2, 6), dtype=torch.int32, device=dev)
+    s = setup
+    gs, w, mask = s["gs"], s["qs"].w, s["ga"].interior_mask
+    N = tk.shape_table(dev)
+    D = mask.shape[0]
+    X = torch.zeros((D, 12), device=dev)
     with pytest.raises(TypeError):
-        ck.apply_mass_elem(x, ed, torch.zeros((2, 6), device=dev),
-                           tk.shape_table(dev))
+        ck.mass_apply(X.double(), gs, w, N, mask)
     with pytest.raises(ValueError):
-        ck.apply_mass_elem(x.float().t(), ed, torch.zeros((2, 6), device=dev),
-                           tk.shape_table(dev))
+        ck.mass_apply(torch.zeros((12, D), device=dev).t(), gs, w, N, mask)
+    with pytest.raises(ValueError):             # not on a 16-byte boundary
+        ck.mass_apply(torch.zeros((D * 12 + 1,), device=dev)[1:]
+                      .view(D, 12), gs, w, N, mask)
+    with pytest.raises(ValueError):             # wrong mask length
+        ck.mass_apply(X, gs, w, N, mask[:-1].contiguous())
+    with pytest.raises(ValueError):             # a middle step needs R, Z
+        ck.mass_apply(X, gs, w, N, mask, step=ck.BinvStep(
+            torch.ones(D, device=dev), None, None, 1.0, 1.0, 1.0, True,
+            False))
+    with pytest.raises(TypeError):
+        ck.accumulate(torch.zeros((2, 6, 3), device=dev, dtype=torch.float64),
+                      gs.idx_v, gs.valid_v, gs.idx_e, gs.valid_e)
+
+
+def test_wrappers_take_scalar_operands_at_any_offset(setup, dev):
+    """Only the lane blocks that K2 and K3 load as vectors must start on
+    4 * gcd(L, 4) bytes: a mask, a K1 input or an L = 1 block that starts
+    4 bytes into its storage runs and matches the twins."""
+    s = setup
+    gs, ga, qs = s["gs"], s["ga"], s["qs"]
+    E = gs.elem_dofs.shape[0]
+    tables = (gs.idx_v, gs.valid_v, gs.idx_e, gs.valid_e)
+
+    def offset(t):
+        return torch.cat([t.new_zeros(1), t.reshape(-1)])[1:].view(t.shape)
+
+    mask = offset(ga.interior_mask)
+    assert mask.data_ptr() % 16
+    X = s["X"]
+    L = X.shape[1]
+    park = torch.full((L,), 3.0, device=dev)
+    Ye = torch.randn((E, 6, L), generator=s["gen"], device=dev)
+    y = ck.accumulate(Ye, *tables, X, mask, park)
+    assert _rel(ck.accumulate_plain(Ye, *tables, X, mask, park), y) <= 1e-5
+    Y1 = offset(torch.randn((E, 6, 1), generator=s["gen"], device=dev))
+    assert _rel(ck.accumulate_plain(Y1, *tables), ck.accumulate(Y1, *tables)
+                ) <= 1e-5
+    N = tk.shape_table(dev)
+    y = tk._apply_mass_fused(qs, gs, mask, X, 50.0)
+    assert _rel(tk._apply_mass_fused_plain(qs, gs, mask, X, 50.0), y) <= 1e-5
+    elem = (gs.elem_dofs, offset(qs.gp), offset(qs.w), qs.inv_eps,
+            s["betas"], 1.0, N, K)
+    Xm = X * mask[:, None]
+    assert _rel(ck.apply_vector3_elem_plain(Xm, *elem),
+                ck.apply_vector3_elem(Xm, *elem)) <= 1e-5
 
 
 # ---------------------------------------------------------------------------
@@ -190,14 +267,45 @@ def r5(dev):
     ga = ta.grid_to_device(dg, dev)
     invs = [ta.assemble_vector3_qf(ga, ta.eps_arrays(g.eps_params(), dev))[0]
             for g in geoms]
-    return dict(ga=ga, gs=ta.gather_scatter(ga), invs=invs,
+    _, diag = ta.assemble_vector3_qf(ga, ta.eps_arrays(geoms[0].eps_params(),
+                                                       dev))
+    return dict(ga=ga, gs=ta.gather_scatter(ga), invs=invs, diag=diag,
                 betas=[g.k0 * 1.49 for g in geoms])
+
+
+@pytest.fixture(scope="module")
+def config1(dev):
+    """The config-1 production mesh (7-core hex, 15000 points, refinement
+    2.2, bucket_rounding 1024; ~60k DOFs) and its mass diagonal."""
+    cfg = SimulationConfig(mesh_min_points=15000, mesh_target_points=15000,
+                           mesh=MeshConfig(bucket_rounding=1024))
+    geom = MCFGeometry(7, 8.0, 1.5, 1.535, 1.0, wavelength_um=1.55)
+    dg = export_device_grid(MeshGenerator.generate(geom, 2.2, cfg), 1024)
+    ga = ta.grid_to_device(dg, dev)
+    qf, diag = ta.assemble_vector3_qf(ga, ta.eps_arrays(geom.eps_params(),
+                                                        dev))
+    return dict(ga=ga, gs=ta.gather_scatter(ga), qf=qf, diag=diag)
+
+
+@pytest.mark.parametrize("mesh", ["r5", "config1"])
+@pytest.mark.parametrize("b,k", [(1, 20), (1, 66), (5, 20), (5, 66)])
+def test_mass_apply_at_main_path_shapes(request, dev, mesh, b, k):
+    """K3 in both modes on the dataset engine's r5 mesh and on the
+    config-1 mesh, at the engine's (B, k)."""
+    m = request.getfixturevalue(mesh)
+    ga, gs = m["ga"], m["gs"]
+    w = m["invs"][0].w if mesh == "r5" else m["qf"].w
+    qs = tk.QFactorSweep(invJT=None, w=w, inv_eps=None, gp=None)
+    D = ga.interior_mask.shape[0]
+    g = torch.Generator(device=dev).manual_seed(b * 1000 + k)
+    X = torch.randn((D, b * 3 * k), generator=g, device=dev)
+    _check_mass(ga, gs, qs, X, 1.0 / torch.sqrt(m["diag"]))
 
 
 @pytest.mark.parametrize("b,k", [(1, 20), (1, 66), (5, 20), (5, 66)])
 def test_kernels_at_dataset_shapes(r5, dev, b, k):
-    """K1-K4 against their twins at the shapes the dataset engine gives
-    them (1e-5 of max|y|)."""
+    """K1, K2 and K4 against their twins at the shapes the dataset engine
+    gives them (1e-5 of max|y|; K3 in test_mass_apply_at_main_path_shapes)."""
     ga, gs, invs = r5["ga"], r5["gs"], r5["invs"][:b]
     qs = tk.QFactorSweep(invJT=invs[0].invJT, w=invs[0].w,
                          inv_eps=torch.stack([q.inv_eps for q in invs]),
@@ -217,9 +325,6 @@ def test_kernels_at_dataset_shapes(r5, dev, b, k):
     extra = (X, ga.interior_mask, park)
     assert _rel(ck.accumulate_plain(Ye, *tables, *extra),
                 ck.accumulate(Ye, *tables, *extra)) <= 1e-5
-    mass = (gs.elem_dofs, qs.w, N)
-    assert _rel(ck.apply_mass_elem_plain(Xm, *mass),
-                ck.apply_mass_elem(Xm, *mass)) <= 1e-5
     W, T1, T0 = (torch.randn((D, b, 3, k), generator=g, device=dev)
                  for _ in range(3))
     c = torch.linspace(100.0, 120.0, b, device=dev)
@@ -233,7 +338,7 @@ def test_kernels_at_dataset_shapes(r5, dev, b, k):
     torch.cuda.synchronize()
 
 
-def test_library_built_once_by_two_threads(dev, monkeypatch):
+def test_library_built_once_by_two_threads(setup, dev, monkeypatch):
     """Two threads calling lib() at once on a machine with no library
     yet: nvcc runs once, both threads get the same handle, and it
     launches."""
@@ -263,12 +368,10 @@ def test_library_built_once_by_two_threads(dev, monkeypatch):
         t.join(600)
     assert not any(t.is_alive() for t in threads)
     assert builds == [1] and len(got) == 2 and got[0] is got[1]
-    x = torch.randn((64, 6), device=dev)
-    ed = torch.randint(0, 64, (8, 6), dtype=torch.int32, device=dev)
-    w = torch.rand((8, 6), device=dev)
-    N = tk.shape_table(dev)
-    assert _rel(ck.apply_mass_elem_plain(x, ed, w, N),
-                ck.apply_mass_elem(x, ed, w, N)) <= 1e-5
+    s = setup
+    args = (s["gs"], s["qs"].w, tk.shape_table(dev), s["ga"].interior_mask)
+    assert _rel(ck.mass_apply_plain(s["X"], *args),
+                ck.mass_apply(s["X"], *args)) <= 1e-5
 
 
 def test_triton_first_launch_from_two_threads(dev, monkeypatch):

@@ -240,6 +240,23 @@ def test_config_file_without_yaml(tmp_path, monkeypatch):
         cli.main(["--config", str(p), "--out", str(tmp_path)])
 
 
+def test_r5_workload_through_cli_generator(tmp_path):
+    """workloads.dataset_argv through cli.generator: the generator that
+    cli.run drives at configs/r5_dataset.yaml, 8 samples, 5 CMT slices."""
+    from pl_fem_tpu_torch import workloads as wl
+
+    gen, args = cli.generator(wl.dataset_argv(tmp_path))
+    assert (args.n, args.seed, args.engine) == (8, 42, "sweep")
+    assert (gen.n_taper_slices, gen.base_seed) == (5, 42)
+    cfg = gen.config
+    assert (cfg.mesh_min_points, cfg.mesh_target_points) == (9000, 18000)
+    assert cfg.mesh.bucket_ratio_band == 0.20
+    assert (cfg.solver.cheb_degree, cfg.solver.cheb_passes,
+            cfg.solver.beta_passes) == (200, 2, 1)
+    assert cfg.use_pml and cfg.solver.device == "cuda"
+    assert (tmp_path / "run.log").exists()
+
+
 # ---------------------------------------------------------------------------
 # thread safety of the device path (the bucket pipeline runs two sweeps)
 # ---------------------------------------------------------------------------

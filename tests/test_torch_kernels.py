@@ -124,6 +124,129 @@ def test_apply_binv_twin_matches_jax(sw, degree):
     assert _rel(ref, y.numpy()) <= 1e-5
 
 
+def test_apply_mass_plain_twin_matches_jax(sw):
+    """The unfused mass twin K3 is held against on the card ==
+    _apply_mass_fused of the JAX package."""
+    Xl = sw["X"].reshape(sw["D"], -1)
+    ref = jk._apply_mass_fused(sw["jqs"], sw["jgs"], sw["jga"].interior_mask,
+                               jnp.asarray(Xl), 3.0)
+    y = tk._apply_mass_fused_plain(sw["tqs"], sw["tgs"], _t(sw["mask"]),
+                                   _t(Xl), 3.0)
+    assert _rel(ref, y.numpy()) <= 1e-6
+
+
+def _binv_inputs(sw):
+    dinv = (1.0 / np.sqrt(np.maximum(sw["diag"], 1e-30))).astype(np.float32)
+    return dinv, np.float32(jk.MASS_LO), np.float32(jk.MASS_HI)
+
+
+@pytest.mark.parametrize("degree", [1, 2, 4])
+def test_apply_binv_plain_twin_matches_jax(sw, degree):
+    Xl = sw["X"].reshape(sw["D"], -1)
+    dinv, lo, hi = _binv_inputs(sw)
+    ref = jk._apply_binv_fused(sw["jqs"], sw["jgs"], sw["jga"].interior_mask,
+                               jnp.asarray(dinv), jnp.float32(lo),
+                               jnp.float32(hi), jnp.asarray(Xl), degree)
+    y = tk._apply_binv_fused_plain(sw["tqs"], sw["tgs"], _t(sw["mask"]),
+                                   _t(dinv), lo, hi, _t(Xl), degree)
+    assert _rel(ref, y.numpy()) <= 1e-6
+
+
+@pytest.mark.parametrize("degree", [1, 2, 4])
+def test_binv_steps_equal_plain_twin(sw, degree):
+    """``degree`` step-mode calls of the mass apply (what K3 launches on
+    the card, here its CPU twin) give the unfused semi-iteration bit for
+    bit; the step keeps R and Z in the caller's buffers."""
+    Xl = _t(sw["X"].reshape(sw["D"], -1))
+    dinv, lo, hi = _binv_inputs(sw)
+    args = (sw["tqs"], sw["tgs"], _t(sw["mask"]), _t(dinv), lo, hi, Xl,
+            degree)
+    y = tk._apply_binv_fused(*args)
+    assert torch.equal(y, tk._apply_binv_fused_plain(*args))
+    assert torch.equal(Xl, _t(sw["X"].reshape(sw["D"], -1)))
+
+
+def test_mass_step_updates_r_and_z_in_place(sw):
+    """One middle step: R' = R - s M~(s Dd), Z' = Z + Dd in the given
+    buffers, Dd' = a Dd + b R' returned."""
+    from pl_fem_tpu_torch.ops import cuda_kernels as ck
+
+    rng = np.random.default_rng(11)
+    D, L = sw["D"], B * 3 * K
+    Dd, R, Z = (_t(rng.standard_normal((D, L)).astype(np.float32))
+                for _ in range(3))
+    ds = _t(rng.uniform(0.5, 2.0, D).astype(np.float32))
+    mask = _t(sw["mask"])
+    N = tk.shape_table("cpu")
+    R0, Z0 = R.clone(), Z.clone()
+    out = ck.mass_apply(Dd, sw["tgs"], sw["tqs"].w, N, mask,
+                        step=ck.BinvStep(ds, R, Z, 0.7, 0.3, 1.0, False,
+                                         False))
+    Rn = R0 - ds[:, None] * tk._apply_mass_fused_plain(
+        sw["tqs"], sw["tgs"], mask, ds[:, None] * Dd)
+    assert torch.equal(R, Rn)
+    assert torch.equal(Z, Z0 + Dd)
+    assert torch.equal(out, 0.7 * Dd + 0.3 * Rn)
+
+
+def test_dof_row_order_is_cached_permutation(sw):
+    """The row walk of the mass kernel: a deterministic permutation of
+    range(D), built once per device grid with the plan. Its blocks are
+    blocks of the Morton walk, whose consecutive rows are mesh
+    neighbours (mean step well under a storage-order walk's)."""
+    ga = ta.grid_from_numpy(sw["dg"], "cpu")
+    order = ta.mass_plan(ga).order
+    assert order.dtype == torch.int32 and order.shape == (sw["D"],)
+    assert torch.equal(torch.sort(order).values,
+                       torch.arange(sw["D"], dtype=torch.int32))
+    assert ta.mass_plan(ga) is ta.gather_scatter(ga).plan
+    morton = ta.dof_row_order(ga.dof_coords.clone())
+    assert torch.equal(morton, ta.dof_row_order(ga.dof_coords))
+    R = ta.MASS_ROWS
+    for b in range(0, sw["D"], R):
+        assert set(order[b:b + R].tolist()) == set(morton[b:b + R].tolist())
+    xy = ga.dof_coords[: sw["dg"].n_dofs]
+    real = morton[morton < sw["dg"].n_dofs].long()
+    walk = (xy[real][1:] - xy[real][:-1]).norm(dim=1).mean()
+    storage = (xy[1:] - xy[:-1]).norm(dim=1).mean()
+    assert walk < 0.5 * storage
+
+
+def test_mass_plan_reproduces_the_mass_apply(sw):
+    """The kernel's sum through the plan, emulated in float64: for every
+    row block, each entry's six gathered rows read through the block's
+    halo slots == elem_dofs, and the per-row sums in table order give
+    the plain twin's m M(m x) + park (x - m x)."""
+    ga = ta.grid_from_numpy(sw["dg"], "cpu")
+    plan = ta.mass_plan(ga)
+    R = ta.MASS_ROWS
+    NB, H = plan.halo.shape
+    assert NB == -(-sw["D"] // R) and plan.row_ptr.shape == (NB * R + 1,)
+    assert plan.loc.dtype == torch.int16 and int(plan.loc.max()) < H
+    counts = (plan.row_ptr[1:] - plan.row_ptr[:-1]).long()
+    pos = torch.repeat_interleave(torch.arange(NB * R), counts)
+    assert int(torch.bincount(pos // R, minlength=NB).max()) \
+        == plan.max_entries
+    e = plan.ent.long() // 6
+    i = plan.ent.long() % 6
+    gathered = plan.halo.long()[(pos // R)[:, None], plan.loc.long()]
+    assert torch.equal(gathered, ga.elem_dofs.long()[e])
+    assert int((plan.halo >= 0).sum(1).sub(plan.n_halo).abs().max()) == 0
+    X = torch.as_tensor(sw["X"].reshape(sw["D"], -1), dtype=torch.float64)
+    m = torch.as_tensor(sw["mask"], dtype=torch.float64)[:, None]
+    C = torch.einsum("eq,qi,qj->eij", sw["tqs"].w.double(),
+                     *[tk.shape_table("cpu").double()] * 2)
+    part = (C[e, i, :, None] * (X * m)[gathered]).sum(1)
+    Y = torch.zeros((NB * R, X.shape[1]), dtype=torch.float64)
+    Y.index_add_(0, pos, part)
+    Yd = torch.zeros_like(X)
+    Yd[plan.order.long()] = Y[: sw["D"]]
+    y = Yd * m + 3.0 * (X - X * m)
+    ref = tk._apply_mass_fused_plain(sw["tqs"], sw["tgs"], _t(sw["mask"]),
+                                     X.float(), 3.0)
+    assert _rel(ref.numpy(), y.numpy()) <= 1e-6
+
+
 @pytest.mark.parametrize("binv", [0, 1])
 def test_cheb_filter_matches_jax_chunk(sw, binv):
     """T1 = T(X), then 11 recurrence steps with the K4 twin (renorm at
