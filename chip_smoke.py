@@ -7,9 +7,10 @@ In order:
 
 1. needs CUDA (raises otherwise) and prints the card's name and power
    limit as nvidia-smi reports them;
-2. builds the CUDA kernels (K1-K3) from ``pl_fem_tpu_torch/ops/csrc``
-   with nvcc and prints the build seconds (Triton builds K4 at its
-   first launch in step 3);
+2. builds the CUDA kernels (K1-K3, K5, K7, K8) from
+   ``pl_fem_tpu_torch/ops/csrc`` with nvcc, one compiler process per
+   source, and prints the build seconds (Triton builds K4 and K6 at
+   their first launches in step 3);
 3. on the config-1 production mesh (7-core hexagonal lantern, r 1.5 um,
    pitch 8 um, n_core 1.535, air clad; ~15k points, ~60k P2 DOFs),
    checks each kernel against its plain PyTorch twin at the main path's
@@ -21,7 +22,12 @@ In order:
    at L = 1 on the mass diagonal's element terms, as
    ``assemble_vector3_qf`` feeds it; K3 in plain mode and as B^-1 of
    degree 1 and 4, which must launch it exactly `degree` times and
-   repeat bit for bit;
+   repeat bit for bit. The scalar path's kernels on the same mesh at
+   k = 22: K5 (stacked apply) at C = 1 on the scalar pencil's blocks
+   and at C = 3 on the (E, 18, 18) vectorial blocks, there also against
+   K1 + K2; K6 (permittivity: eps_re equal, eps_im to 1e-6); K7 (scalar
+   blocks); K8 (spectrum bound, C = 1 and 3, also >= its f64 value less
+   1e-4 relative); K4 on a (D, 1, 1, k) block; K2 and K3 at L = k;
 4. runs the main path twice, warm-up then timed:
    ``TrueVectorialMaxwellSolver.solve_sweep`` over 8 wavelengths
    1.50-1.64 um in fast mode (cheb_degree 200, cheb_passes 2,
@@ -43,7 +49,19 @@ In order:
    conservation in (0, 1.05]), that K1-K4 launched during the run, and
    that a second run on the same directory solves nothing; then it holds
    each kernel against its twin at the largest (B, k) the engine used,
-   on a mesh at the engine's settings.
+   on a mesh at the engine's settings (K5-K8 too, at the scalar
+   engine's k);
+7. solves the scalar Helmholtz modes of the config-1 design (1.55 um)
+   on the production mesh with ``ScalarHelmholtzSolver`` (10 modes, fast
+   preset), device backend then hybrid (host ARPACK) backend; the two
+   n_eff lists must agree to 5e-5, the kernels K2-K8 must launch in the
+   device solve, and the single-core fiber's LP01 must match the exact
+   LP dispersion (ops/analytic.lp_modes) within 1e-4 relative;
+8. runs the scalar dataset engine through the CLI (``--scalar
+   --cmt-slices 5`` at configs/r5_dataset.yaml) on 4 of the config's 220
+   samples (the one cut): every validated sample must be a
+   ``scalar_cascade`` record, at least one must succeed with finite
+   losses, K2-K8 must launch, and a second run must solve nothing.
 
 The config-1 and r5 workloads are defined in
 ``pl_fem_tpu_torch/workloads.py``. It prints the per-kernel JSON line,
@@ -72,6 +90,10 @@ F32_FLOPS_PER_S = 67e12
 # values and gradients 108, curl / divergence terms 17, pull-back 108
 K1_FLOPS_PER_POINT = 233
 FIBER_RTOL = 1e-3            # HE11 n_eff vs exact, fast-mode class
+LP01_RTOL = 1e-4             # scalar LP01 n_eff vs the exact LP dispersion
+SCALAR_PARITY = 5e-5         # device vs hybrid n_eff, tests/test_solvers.py:67
+EPS_IM_TOL = 1e-6            # K6 eps_im vs twin, of max(1, max|eps_im|)
+BOUND_F64_SLACK = 1e-4       # K8 may sit this far (relative) under f64
 REPO = Path(__file__).resolve().parent
 
 
@@ -306,6 +328,211 @@ def _kernel_checks(dg, geoms, k, dev):
     return res
 
 
+def _scalar_kernel_checks(dg, geom, k, dev):
+    """K5-K8 against their twins on ``dg`` with k columns, and the reused
+    K2, K3, K4 at the scalar solver's shapes; returns {name: row}."""
+    import numpy as np
+    import torch
+
+    from pl_fem_tpu_torch.ops import assembly as ta
+    from pl_fem_tpu_torch.ops import cuda_kernels as ck
+    from pl_fem_tpu_torch.ops import kernels as tkn
+    from pl_fem_tpu_torch.ops import triton_kernels as tk
+
+    ga = ta.grid_to_device(dg, dev)
+    gs = ta.gather_scatter(ga)
+    ea = ta.eps_arrays(geom.eps_params(), dev)
+    D = dg.n_dofs_padded
+    E = dg.elem_dofs.shape[0]
+    Q = ga.qp_w.shape[1]
+    n_cores = ea.positions.shape[0]
+    split, Wv = gs.idx_v.shape
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    print(f"scalar kernel checks at D={D} E={E} k={k}:", flush=True)
+    res = {}
+
+    # K6: eps_re must be decided exactly as the twin decides it
+    re, im = tk.eps_at_quadrature(ga.qp_xy, ea)
+    rre, rim = tk.eps_at_quadrature_plain(ga.qp_xy, ea)
+    if not torch.equal(re, rre):
+        raise AssertionError(f"K6: eps_re differs from the twin at "
+                             f"{int((re != rre).sum())} points")
+    im_err = float((im - rim).abs().max())
+    im_lim = EPS_IM_TOL * max(1.0, float(rim.abs().max()))
+    if not im_err <= im_lim:
+        raise AssertionError(f"K6: max|eps_im - twin| = {im_err:.3e} > "
+                             f"{im_lim:.3e}")
+    print(f"  K6 eps_re equal at all {E * Q} points; max|eps_im - twin| = "
+          f"{im_err:.3e} (limit {im_lim:.3e})", flush=True)
+    res["eps_at_quadrature"] = _compare(
+        "K6 eps_at_quadrature",
+        lambda: torch.stack(tk.eps_at_quadrature(ga.qp_xy, ea)),
+        lambda: torch.stack(tk.eps_at_quadrature_plain(ga.qp_xy, ea)),
+        (16 * E * Q + 12 * n_cores + 24, (5 * n_cores + 15) * E * Q))
+
+    # K7, with one einsum over pre-stacked (dx N, dy N, N) channels as
+    # the library yardstick of the A blocks
+    k2 = float(np.float32(geom.k0) ** 2)
+    blk_args = (ga.grad_phys, ga.qp_w, ga.shape_vals, re, k2)
+    F = torch.stack([ga.grad_phys[..., 0], ga.grad_phys[..., 1],
+                     ga.shape_vals[None].expand(E, Q, 6)], dim=2)
+    Wc = torch.stack([ga.qp_w, ga.qp_w, -k2 * ga.qp_w * re], dim=2)
+    A_ref = ck.scalar_blocks_plain(*blk_args)[0]
+    ein_err = float((torch.einsum("eqc,eqci,eqcj->eij", Wc, F, F) - A_ref)
+                    .abs().max())
+    print(f"  einsum yardstick of K7: max|einsum - twin's A| = "
+          f"{ein_err:.3e} (max|A| = {float(A_ref.abs().max()):.3e})",
+          flush=True)
+    del A_ref
+    res["scalar_blocks"] = _compare(
+        "K7 scalar_blocks",
+        lambda: torch.stack(ck.scalar_blocks(*blk_args)),
+        lambda: torch.stack(ck.scalar_blocks_plain(*blk_args)),
+        (4 * E * (14 * Q + 72) + 4 * Q * 6, 36 * E * Q * 11),
+        lambda: torch.einsum("eqc,eqci,eqcj->eij", Wc, F, F))
+    A, Bm = ck.scalar_blocks(*blk_args)
+    if not torch.equal(A, ck.scalar_blocks(*blk_args)[0]):
+        raise AssertionError("K7 is not bitwise repeatable")
+    # the stacked comparison above is scaled by max|A| = O(1); the mass
+    # entries are ~1e-4..5e-2 um^2, so B is held to its own scale here
+    B_ref = ck.scalar_blocks_plain(*blk_args)[1]
+    b_err = float((Bm - B_ref).abs().max())
+    b_scale = float(B_ref.abs().max())
+    print(f"  K7 B blocks alone: max_abs_err={b_err:.3e} (max|B|="
+          f"{b_scale:.3e}, limit {KERNEL_RTOL:g} of max|B|)", flush=True)
+    if not b_err <= KERNEL_RTOL * b_scale:
+        raise AssertionError(f"K7: max|B - twin| = {b_err:.3e} > "
+                             f"{KERNEL_RTOL:g} * max|B| = {b_scale:.3e}")
+    res["scalar_blocks"]["b_max_abs_err"] = b_err
+    del B_ref
+
+    # the (E, 18, 18) vectorial blocks for the C = 3 checks
+    prim, _, _ = ta.assemble_vector3_system(ga, ea)
+    beta = np.float32(geom.k0 * 1.49)
+    A3 = ta.vector3_stacked_A(prim, beta, np.float32(1.0))
+    M3 = prim["u_nn"]
+    del prim
+
+    # K8 at C = 1 and C = 3, against the twin and against f64
+    Linv = torch.as_tensor(tkn._LINV_REF, dtype=torch.float32, device=dev)
+    tr = float(np.trace(tkn._B_REF))
+    for C, Ab, Bb in ((1, A, Bm), (3, A3, M3)):
+        R = 6 * C
+        row = _compare(
+            f"K8 pencil_bounds (C = {C})",
+            lambda: ck.pencil_bounds(Ab, Bb, ga.elem_valid, Linv, tr, C),
+            lambda: ck.pencil_bounds_plain(Ab, Bb, ga.elem_valid, Linv, tr,
+                                           C),
+            (4 * R * R * E + 4 * 6 * E + E + 4, 24 * R * R * E))
+        b32 = float(ck.pencil_bounds(Ab, Bb, ga.elem_valid, Linv, tr, C))
+        b64 = float(ck.pencil_bounds_plain(Ab.double(), Bb.double(),
+                                           ga.elem_valid, Linv.double(), tr,
+                                           C))
+        if not b32 >= b64 * (1.0 - BOUND_F64_SLACK):
+            raise AssertionError(f"K8 (C = {C}): {b32!r} is below its f64 "
+                                 f"value {b64!r} by more than "
+                                 f"{BOUND_F64_SLACK:g} relative")
+        print(f"  K8 (C = {C}) bound {b32:.6e} vs f64 {b64:.6e} (may sit "
+              f"{BOUND_F64_SLACK:g} relative under it)", flush=True)
+        if C == 1:
+            res["pencil_bounds"] = row
+        else:
+            res["pencil_bounds"]["c3"] = row
+
+    # K5 at C = 1 (the scalar pencil) and C = 3 (the vectorial blocks),
+    # with torch.bmm on the gathered rows as the product's yardstick
+    mask1, mask3 = ga.dof_valid, ga.interior_mask
+    for C, Ab, mask in ((1, A, mask1), (3, A3, mask3)):
+        R = 6 * C
+        X = torch.randn((C * D, k), generator=gen, device=dev)
+        ed = torch.cat([gs.elem_dofs.long() + c * D for c in range(C)],
+                       dim=1)
+        G = (X * mask.repeat(C)[:, None])[ed]               # (E, 6C, k)
+        row = _compare(
+            f"K5 apply_stacked_elem (C = {C})",
+            lambda: ck.apply_stacked_elem(X, mask, gs.elem_dofs, Ab, C),
+            lambda: ck.apply_stacked_elem_plain(X, mask, gs.elem_dofs, Ab, C),
+            (4 * (R * R * E + C * D * k + R * E * k) + 4 * 6 * E + 4 * D,
+             2 * R * R * E * k),
+            lambda: torch.bmm(Ab, G))
+        del G
+        if C == 1:
+            res["apply_stacked_elem"] = row
+        else:
+            res["apply_stacked_elem"]["c3"] = row
+            # the assembled-block apply against the matrix-free one
+            qf, _ = ta.assemble_vector3_qf(ga, ea)
+            qs = tkn.QFactorSweep(invJT=qf.invJT, w=qf.w,
+                                  inv_eps=qf.inv_eps[None], gp=ga.grad_phys)
+            y = tkn._apply_stacked(Ab, gs, mask, 50.0, X, 3)
+            ref = tkn._stacked_from_fused(tkn._apply_vector3_fused(
+                qs, gs, mask, torch.tensor([50.0], device=dev),
+                torch.tensor([beta], device=dev), 1.0,
+                tkn._fused_from_stacked(X[:, None, :])))[:, 0]
+            err = float((y - ref).abs().max())
+            scale = float(ref.abs().max())
+            print(f"  K5 + K2 (C = 3) vs K1 + K2: max_abs_err={err:.3e} "
+                  f"(max|y|={scale:.3e}, limit {KERNEL_RTOL:g} of max|y|)",
+                  flush=True)
+            if not err <= KERNEL_RTOL * scale:
+                raise AssertionError("the stacked apply at C = 3 disagrees "
+                                     "with the matrix-free A(beta) apply")
+    del A3, M3
+
+    # the reused kernels at the scalar solver's shapes (L = k, C = 1)
+    X = torch.randn((D, k), generator=gen, device=dev)
+    blk = 4 * D * k
+    tab = 5 * (split * Wv + 2 * (D - split))
+    mtab = tab + 4 * E * 6 + 4 * E * Q + 4 * Q * 6 + 4 * D + 4 * D
+    Ye = ck.apply_stacked_elem(X, mask1, gs.elem_dofs, A, 1)[0]
+    park = torch.full((k,), 1.0, device=dev)
+    tables = (gs.idx_v, gs.valid_v, gs.idx_e, gs.valid_e)
+    res["accumulate"] = _compare(
+        "K2 accumulate (epilogue, L = k)",
+        lambda: ck.accumulate(Ye, *tables, X, mask1, park),
+        lambda: ck.accumulate_plain(Ye, *tables, X, mask1, park),
+        (4 * E * 6 * k + tab + 2 * blk + 4 * D + 4 * k, 0))
+    # K2 without its epilogue is one SpMM with the 0/1 scatter matrix
+    S = _scatter_csr(gs, E)
+    Yflat = Ye.view(6 * E, k)
+    res["accumulate"]["no_epilogue"] = _compare(
+        "K2 accumulate (no epilogue, L = k)",
+        lambda: ck.accumulate(Ye, *tables),
+        lambda: ck.accumulate_plain(Ye, *tables),
+        (4 * E * 6 * k + tab + blk, 0),
+        lambda: torch.sparse.mm(S, Yflat))
+    del S, Yflat
+    # K3 in plain mode is one SpMM with the assembled masked mass matrix
+    N = tkn.shape_table(dev)
+    Mt = _mass_csr(gs, ga.qp_w, N, mask1, 1.0)
+    spmm_err = float((torch.sparse.mm(Mt, X) - ck.mass_apply_plain(
+        X, gs, ga.qp_w, N, mask1)).abs().max())
+    print(f"  SpMM yardstick of K3: {Mt._nnz()} nonzeros, max|SpMM - twin| "
+          f"= {spmm_err:.3e}", flush=True)
+    res["mass_apply"] = _compare(
+        "K3 mass_apply (plain mode, L = k, valid-DOF mask)",
+        lambda: ck.mass_apply(X, gs, ga.qp_w, N, mask1),
+        lambda: ck.mass_apply_plain(X, gs, ga.qp_w, N, mask1),
+        (2 * blk + mtab, 0), lambda: torch.sparse.mm(Mt, X))
+    del Mt
+    W, T1, T0 = (torch.randn((D, 1, 1, k), generator=gen, device=dev)
+                 for _ in range(3))
+    c = torch.tensor([120.0], device=dev)
+    h = torch.tensor([1100.0], device=dev)
+    res["cheb_step"] = _compare(
+        "K4 cheb_step (renorm step, C = 1)",
+        lambda: tk.cheb_step(W, T1.clone(), T0, c, h, renorm=True),
+        lambda: tk.cheb_step_plain(W, T1.clone(), T0, c, h, renorm=True),
+        (5 * blk + 8, 0))
+    res["cheb_step"]["plain_step"] = _compare(
+        "K4 cheb_step (plain step, C = 1)",
+        lambda: tk.cheb_step(W, T1, T0, c, h),
+        lambda: tk.cheb_step_plain(W, T1, T0, c, h),
+        (4 * blk + 8, 0))
+    return res
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -319,10 +546,11 @@ def main() -> int:
     from pl_fem_tpu_torch.models import MCFGeometry
     from pl_fem_tpu_torch.ops import cuda_kernels as ck
     from pl_fem_tpu_torch.ops import triton_kernels as tk
-    from pl_fem_tpu_torch.ops.analytic import vector_modes
+    from pl_fem_tpu_torch.ops.analytic import lp_modes, vector_modes
     from pl_fem_tpu_torch.ops.femgrid import (MeshGenerator,
                                               export_device_grid)
-    from pl_fem_tpu_torch.solvers import TrueVectorialMaxwellSolver
+    from pl_fem_tpu_torch.solvers import (ScalarHelmholtzSolver,
+                                          TrueVectorialMaxwellSolver)
 
     card = _card()
     print(f"card: {card}", flush=True)
@@ -342,28 +570,45 @@ def main() -> int:
           f"{grid.n_elems} elements, bucket {dg.bucket} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
-    results = _kernel_checks(dg, geoms,
-                             wl.N_MODES + cfg.solver.extra_vectors, dev)
+    k_c1 = wl.N_MODES + cfg.solver.extra_vectors
+    results = _kernel_checks(dg, geoms, k_c1, dev)
+    torch.cuda.empty_cache()
+    results_sc = _scalar_kernel_checks(dg, wl.config1_geom(1.55), k_c1, dev)
     torch.cuda.empty_cache()
 
     # -- 4. the main path: warm-up, then timed --------------------------
     wrappers = {"apply_vector3_elem": ck.apply_vector3_elem,
                 "accumulate": ck.accumulate,
                 "mass_apply": ck.mass_apply,
-                "cheb_step": tk.cheb_step}
+                "cheb_step": tk.cheb_step,
+                "apply_stacked_elem": ck.apply_stacked_elem,
+                "eps_at_quadrature": tk.eps_at_quadrature,
+                "scalar_blocks": ck.scalar_blocks,
+                "pencil_bounds": ck.pencil_bounds}
+    # the vectorial paths run K1-K4, K6 and K8; the scalar paths K2-K8
+    on_vector = [n for n in wrappers
+                 if n not in ("apply_stacked_elem", "scalar_blocks")]
+    on_scalar = [n for n in wrappers if n != "apply_vector3_elem"]
+
+    def reset_counts():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {name: fn.launches for name, fn in wrappers.items()}
+
     Solver = TrueVectorialMaxwellSolver
     t0 = time.perf_counter()
     Solver.solve_sweep(geoms, dg, wl.N_MODES, cfg)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     sweep = Solver.solve_sweep(geoms, dg, wl.N_MODES, cfg)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = read_counts()
     phases = {p: round(s, 3) for p, s in Solver.last_sweep_times.items()}
     print(f"sweep warm-up: {warm_s:.1f} s; timed: {dt:.2f} s = "
           f"{dt / wl.N_SWEEP:.3f} s/design; peak device memory "
@@ -384,8 +629,8 @@ def main() -> int:
                                      f"({g.n_clad}, {g.n_core})")
             if not np.all(np.isfinite(m["Ex_dofs"])):
                 raise AssertionError("non-finite mode field")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in on_vector:
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by the "
                                  f"main path")
 
@@ -413,14 +658,13 @@ def main() -> int:
     out_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_dataset_")
     out_dir = Path(out_tmp.name)
     argv = wl.dataset_argv(out_dir)
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     gen, records = cli.run(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = read_counts()
     lines = (out_dir / "records.jsonl").read_text().splitlines()
     solved = [r for r in records if r.success_physics]
     print(f"dataset engine (configs/r5_dataset.yaml, {wl.DATASET_N} of its "
@@ -447,8 +691,8 @@ def main() -> int:
             raise AssertionError(f"{r.sample_id} passed validation but was "
                                  f"not solved in a bucket sweep: "
                                  f"{r.error_msg}")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in on_vector:
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by the "
                                  f"dataset engine")
     good = [r for r in records if r.success and _finite(
@@ -464,12 +708,11 @@ def main() -> int:
           flush=True)
 
     # resume: the same run on the same directory solves nothing
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_counts()
     cli.run(argv)
     again = (out_dir / "records.jsonl").read_text().splitlines()
     out_tmp.cleanup()
-    relaunched = {name: fn.launches for name, fn in wrappers.items()}
+    relaunched = read_counts()
     print(f"resume run: {len(again)} lines, launches "
           f"{json.dumps(relaunched)}", flush=True)
     if again != lines or any(relaunched.values()):
@@ -488,6 +731,143 @@ def main() -> int:
         [wl.config1_geom(float(w)) for w in np.linspace(1.53, 1.61, b_ds)],
         k_ds, dev)
     torch.cuda.empty_cache()
+    launches_ds = launches
+
+    # -- 7. the scalar solver at full width: device, hybrid, fiber ------
+    sgeom = wl.config1_geom(1.55)
+    ScalarHelmholtzSolver(sgeom, cfg).solve(dg, wl.N_MODES)      # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    ssolver = ScalarHelmholtzSolver(sgeom, cfg)
+    t0 = time.perf_counter()
+    smodes = ssolver.solve(dg, wl.N_MODES)
+    torch.cuda.synchronize()
+    dt_dev = time.perf_counter() - t0
+    launches_scalar = read_counts()
+    print("scalar solve phases (s): " + json.dumps(
+        {p: round(v, 3) for p, v in ssolver.last_solve_times.items()}),
+        flush=True)
+    passes = launches_scalar["cheb_step"] / cfg.solver.cheb_degree
+    print(f"scalar solve (config-1 design at 1.55 um, {grid.n_dofs} DOFs, "
+          f"{wl.N_MODES} modes, device backend): {dt_dev:.2f} s, "
+          f"{passes:g} passes of degree {cfg.solver.cheb_degree}, "
+          f"{len(smodes)} modes", flush=True)
+    print(f"launches in the scalar solve: {json.dumps(launches_scalar)}",
+          flush=True)
+    for name in on_scalar:
+        if launches_scalar[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the "
+                                 f"scalar solve")
+    if launches_scalar["apply_vector3_elem"]:
+        raise AssertionError("the scalar solve launched K1")
+    hcfg = dataclasses.replace(cfg, solver=dataclasses.replace(
+        cfg.solver, backend="hybrid"))
+    reset_counts()
+    t0 = time.perf_counter()
+    hsolver = ScalarHelmholtzSolver(sgeom, hcfg)
+    hmodes = hsolver.solve(dg, wl.N_MODES)
+    dt_hyb = time.perf_counter() - t0
+    print("hybrid solve phases (s): " + json.dumps(
+        {p: round(v, 3) for p, v in hsolver.last_solve_times.items()}),
+        flush=True)
+    if any(read_counts().values()):
+        raise AssertionError("the hybrid backend launched a kernel")
+    ne_d = [m["n_eff"] for m in smodes[:wl.N_MODES]]
+    ne_h = [m["n_eff"] for m in hmodes[:wl.N_MODES]]
+    print(f"scalar solve, hybrid backend (host ARPACK): {dt_hyb:.2f} s, "
+          f"{len(hmodes)} modes", flush=True)
+    print(f"scalar n_eff device: {[round(x, 7) for x in ne_d]}", flush=True)
+    print(f"scalar n_eff hybrid: {[round(x, 7) for x in ne_h]}", flush=True)
+    if len(ne_d) < wl.N_MODES or len(ne_h) < wl.N_MODES:
+        raise AssertionError(f"scalar solve found {len(ne_d)} (device) and "
+                             f"{len(ne_h)} (hybrid) of {wl.N_MODES} modes")
+    worst = max(abs(a - b) for a, b in zip(ne_d, ne_h))
+    print(f"scalar device vs hybrid: max|dn_eff| = {worst:.2e} (limit "
+          f"{SCALAR_PARITY:g})", flush=True)
+    if not worst <= SCALAR_PARITY:
+        raise AssertionError(f"scalar device and hybrid n_eff differ by "
+                             f"{worst:.2e} > {SCALAR_PARITY:g}")
+    for m in smodes:
+        if not (sgeom.n_clad < m["n_eff"] < sgeom.n_core * 1.005
+                and np.all(np.isfinite(m["field_vector"]))
+                and m["field_vector"].shape == (grid.n_dofs,)):
+            raise AssertionError("bad scalar mode")
+    fsm = ScalarHelmholtzSolver(fiber, fcfg).solve(
+        export_device_grid(fgrid, 1024), 8)
+    lp01 = max(ne for _, _, ne in lp_modes(fiber.V_number, fiber.n_core,
+                                            fiber.n_clad))
+    if not fsm:
+        raise AssertionError("single-core fiber returned no scalar modes")
+    rel = abs(fsm[0]["n_eff"] - lp01) / lp01
+    print(f"fiber ({fgrid.n_dofs} DOFs): scalar LP01 n_eff "
+          f"{fsm[0]['n_eff']:.6f} vs exact {lp01:.6f}, rel err {rel:.2e} "
+          f"(limit {LP01_RTOL:g})", flush=True)
+    if not rel <= LP01_RTOL:
+        raise AssertionError(f"fiber LP01 rel err {rel:.2e} > {LP01_RTOL}")
+
+    # -- 8. the scalar dataset engine through the CLI -------------------
+    out_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_scalar_")
+    out_dir = Path(out_tmp.name)
+    argv = wl.scalar_dataset_argv(out_dir)
+    reset_counts()
+    t0 = time.perf_counter()
+    sgen, srecords = cli.run(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_sds = read_counts()
+    lines = (out_dir / "records.jsonl").read_text().splitlines()
+    ssolved = [r for r in srecords if r.success_physics]
+    print(f"scalar dataset engine (--scalar, configs/r5_dataset.yaml, "
+          f"{wl.SCALAR_DATASET_N} of its 220 samples, "
+          f"{wl.DATASET_CMT_SLICES} CMT slices, serial loop): "
+          f"{len(srecords)} records, {len(ssolved)} validated; {wall:.1f} s "
+          f"wall = {3600.0 * len(ssolved) / wall:.1f} designs/hour (host "
+          f"clock)", flush=True)
+    print("scalar dataset phase seconds, summed over designs: " + json.dumps(
+        {p: round(v, 3) for p, v in sgen.phase_times.items()}), flush=True)
+    print(f"launches in the scalar dataset run: {json.dumps(launches_sds)}",
+          flush=True)
+    for r in srecords:
+        print(f"  {r.sample_id}: success={r.success} mode={r.solver_mode} "
+              f"dofs={r.n_dofs} modes={r.n_modes_found} "
+              f"n_eff_max={r.n_eff_max:.6f} IL_mux={r.IL_phys_mux_dB} "
+              f"IL_CMT_mux={r.IL_CMT_mux_dB} "
+              f"power_mux={r.power_conservation_mux} "
+              f"error={r.error_msg} warnings={r.warnings}", flush=True)
+    if len(lines) != wl.SCALAR_DATASET_N:
+        raise AssertionError(f"records.jsonl holds {len(lines)} lines, "
+                             f"expected {wl.SCALAR_DATASET_N}")
+    for r in ssolved:
+        if r.solver_mode != "scalar_cascade" or r.n_dofs <= 0:
+            raise AssertionError(f"{r.sample_id} passed validation but is "
+                                 f"no scalar_cascade record: {r.error_msg}")
+    for name in on_scalar:
+        if launches_sds[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the "
+                                 f"scalar dataset engine")
+    sgood = [r for r in srecords if r.success and _finite(
+        r.IL_phys_mux_dB, r.MDL_phys_mux_dB, r.crosstalk_mux_dB,
+        r.IL_phys_demux_dB, r.n_eff_max)]
+    if not sgood:
+        raise AssertionError("no scalar record succeeded with finite losses")
+    n_cmt = sum(1 for r in srecords if _finite(r.IL_CMT_mux_dB))
+    print(f"scalar records with finite losses: {len(sgood)}/{len(srecords)};"
+          f" with a CMT IL: {n_cmt}", flush=True)
+    reset_counts()
+    cli.run(argv)
+    again = (out_dir / "records.jsonl").read_text().splitlines()
+    out_tmp.cleanup()
+    relaunched = read_counts()
+    print(f"scalar resume run: {len(again)} lines, launches "
+          f"{json.dumps(relaunched)}", flush=True)
+    if again != lines or any(relaunched.values()):
+        raise AssertionError("the resumed scalar run re-simulated samples")
+
+    # K5-K8 at the scalar engine's largest k on the dataset mesh
+    k_sds = max(max(math.ceil(2.8 * r.n_cores), r.n_modes_found)
+                for r in ssolved) + sgen.config.solver.extra_vectors
+    results_sds = _scalar_kernel_checks(ds_dg, sgeom, k_sds, dev)
+    torch.cuda.empty_cache()
 
     src = "pl_fem_tpu_torch/ops/"
     meta = {
@@ -500,16 +880,40 @@ def main() -> int:
                        "pl_fem_tpu/ops/kernels.py:640"),
         "cheb_step": ("triton", src + "triton_kernels.py",
                       "pl_fem_tpu/ops/kernels.py:702"),
+        "apply_stacked_elem": ("cuda", src + "csrc/apply_stacked.cu",
+                               "pl_fem_tpu/ops/kernels.py:74"),
+        "eps_at_quadrature": ("triton", src + "triton_kernels.py",
+                              "pl_fem_tpu/ops/assembly.py:126"),
+        "scalar_blocks": ("cuda", src + "csrc/scalar_blocks.cu",
+                          "pl_fem_tpu/ops/assembly.py:151, "
+                          "pl_fem_tpu/ops/assembly.py:327"),
+        "pencil_bounds": ("cuda", src + "csrc/pencil_bounds.cu",
+                          "pl_fem_tpu/ops/kernels.py:1120"),
     }
     kernels = []
     for name, (route, source, replaces) in meta.items():
-        kernels.append({
-            "name": name, "route": route, "source": source,
-            "replaces": replaces, "launches": launches[name],
-            **results[name],
-            "launches_by_path": {"sweep": launches_sweep[name],
-                                 "dataset": launches[name]},
-            "dataset_shape": {"B": b_ds, "k": k_ds, **results_ds[name]}})
+        by_path = {"sweep": launches_sweep[name],
+                   "dataset": launches_ds[name],
+                   "scalar_solve": launches_scalar[name],
+                   "scalar_dataset": launches_sds[name]}
+        if name in results:
+            # K1-K4: the vectorial dataset run's count, the packed
+            # shapes' numbers; the scalar solver's shapes beside them
+            row = {"launches": launches_ds[name], **results[name],
+                   "dataset_shape": {"B": b_ds, "k": k_ds,
+                                     **results_ds[name]}}
+            if name in results_sc:
+                row["scalar_shape"] = {"k": k_c1, **results_sc[name]}
+                row["scalar_dataset_shape"] = {"k": k_sds,
+                                               **results_sds[name]}
+        else:
+            # K5-K8: the scalar solve's count, the config-1 mesh at
+            # k = 22; the scalar dataset's mesh and k beside them
+            row = {"launches": launches_scalar[name], **results_sc[name],
+                   "dataset_shape": {"k": k_sds, **results_sds[name]}}
+        kernels.append({"name": name, "route": route, "source": source,
+                        "replaces": replaces, **row,
+                        "launches_by_path": by_path})
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

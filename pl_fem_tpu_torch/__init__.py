@@ -1,12 +1,13 @@
-"""pl_fem_tpu_torch — the photonic-lantern vectorial FEM eigensolver in
-PyTorch, with hand-written CUDA and Triton kernels for NVIDIA Hopper.
+"""pl_fem_tpu_torch — the photonic-lantern FEM eigensolvers in PyTorch,
+with hand-written CUDA and Triton kernels for NVIDIA Hopper.
 
 A port of the JAX package ``pl_fem_tpu`` (which stays the reference):
 host meshing and export, device assembly, the packed same-grid
 Chebyshev-filter eigensolver and the host f64 polish of the vectorial
-H-field modes, the loss model and CMT (``physics``), the dataset engine
-(``dataset``) and its CLI (``python -m pl_fem_tpu_torch.cli``). It
-imports neither jax nor ``pl_fem_tpu``.
+H-field modes, the scalar Helmholtz solver, the host ARPACK ('hybrid')
+backend of both, the loss model and CMT (``physics``), the dataset
+engine (``dataset``) and its CLI (``python -m pl_fem_tpu_torch.cli``).
+It imports neither jax nor ``pl_fem_tpu``.
 
 The solver device is explicit: ``SolverConfig.device`` (default
 ``"cuda"``). On CUDA tensors the filter runs the kernels in
@@ -25,11 +26,12 @@ __all__ = [
     "PHYS", "PhysConst", "SimulationConfig", "SolverConfig", "MeshConfig",
     "solver_preset", "MCFGeometry", "EpsParams",
     # lazy (see __getattr__)
-    "TrueVectorialMaxwellSolver", "MeshGenerator",
+    "TrueVectorialMaxwellSolver", "ScalarHelmholtzSolver", "MeshGenerator",
 ]
 
 _LAZY = {
     "TrueVectorialMaxwellSolver": "solvers.vectorial",
+    "ScalarHelmholtzSolver": "solvers.scalar",
     "MeshGenerator": "ops.femgrid",
 }
 

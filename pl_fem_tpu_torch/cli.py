@@ -1,8 +1,8 @@
 """Command-line dataset generation (reference seam: main.py:307-427).
 
     python -m pl_fem_tpu_torch.cli --n 500 --out ./dataset [--no-pml]
-        [--cauchy] [--cmt-slices 5] [--seed 42] [--config run.yaml]
-        [--verbose]
+        [--scalar] [--cauchy] [--cmt-slices 5] [--seed 42]
+        [--config run.yaml] [--verbose]
 
 Port of pl_fem_tpu/cli.py with the same flags. The mode solves run on
 ``SolverConfig.device`` (default ``cuda``; a config file's
@@ -13,8 +13,8 @@ vs the reference CLI (documented, deliberate):
   plain random draws (main.py:327-340), so runs are reproducible;
 - records checkpoint incrementally to records.jsonl and runs resume
   after a crash (the reference writes CSV only at the end);
-- the vectorial H-field solver is the only one ported: ``--scalar``
-  raises NotImplementedError (ROADMAP A8).
+- the vectorial H-field solver is the default (use --scalar for the
+  reference CLI's scalar pipeline, which runs design by design).
 """
 from __future__ import annotations
 
@@ -109,8 +109,7 @@ def generator(argv=None):
     parser.add_argument("--out", type=str, default="./dataset_pl")
     parser.add_argument("--no-pml", action="store_true", default=False)
     parser.add_argument("--scalar", action="store_true", default=False,
-                        help="scalar Helmholtz instead of vectorial H-field "
-                             "(not ported yet: raises, ROADMAP A8)")
+                        help="scalar Helmholtz instead of vectorial H-field")
     parser.add_argument("--cauchy", action="store_true", default=False,
                         help="IP-Dip Cauchy dispersion n(lambda)")
     parser.add_argument("--cmt-slices", type=int, default=0,

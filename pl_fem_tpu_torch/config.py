@@ -26,8 +26,9 @@ PhysicalConstants = PhysConst
 class SolverConfig:
     """Eigensolver knobs (new to this framework)."""
 
-    # 'device': Chebyshev filter on ``device`` + host f64 polish. The
-    # host ARPACK backend ('hybrid') is not ported yet.
+    # 'device': Chebyshev filter on ``device`` + host f64 polish;
+    # 'hybrid': scipy ARPACK shift-invert on the host CSR pencil (the
+    # reference's algorithm; parity oracle and CPU fallback)
     backend: str = "device"
     # torch device the filter runs on ('cuda', 'cuda:1', 'cpu'); the
     # kernels launch only for CUDA tensors, CPU runs their plain twins

@@ -11,10 +11,12 @@ are appended to ``records.jsonl`` as they complete, and ``resume=True``
 skips already-simulated sample_ids after a crash.
 
 Where the work runs: sampling, validation, meshing, the f64 polish, the
-losses and the CMT propagation on the host; every mode solve (the bucket
-sweeps and the CMT slice sweeps) through ``solve_sweep`` on
-``SolverConfig.device``. Only the vectorial solver is ported: the scalar
-Helmholtz path raises ``NotImplementedError`` (ROADMAP A8).
+losses and the CMT propagation on the host; every mode solve on
+``SolverConfig.device``: the vectorial bucket sweeps and CMT slice
+sweeps through ``solve_sweep``, the scalar runs (``use_vectorial=False``)
+design by design and slice by slice through ``ScalarHelmholtzSolver``.
+With ``SolverConfig.backend == "hybrid"`` the serial engine's design
+solves run scipy ARPACK on the host instead.
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ from ..models import MCFGeometry, taper_profile_fraction
 from ..ops.femgrid import MeshGenerator, export_device_grid
 from ..physics import LossCalculator
 from ..physics.cmt import CoupledModeTheory
-from ..solvers import TrueVectorialMaxwellSolver
+from ..solvers import ScalarHelmholtzSolver, TrueVectorialMaxwellSolver
 from ..utils import PhaseTimer
 from .bucketing import (bucket_key, canonicalize, class_geometry,
                         group_by_bucket, rescale_modes)
@@ -58,8 +60,10 @@ class DatasetGenerator:
     """Per-sample simulation pipeline + batch orchestration.
 
     ``phase_times`` sums the wall-clock seconds of the run's phases
-    (mesh, solve, losses, cmt with its cmt_solve / cmt_propagate parts)
-    over all designs; with ``pipeline_buckets`` > 1 two buckets run at
+    (mesh, solve, losses, cmt with its cmt_solve / cmt_propagate parts;
+    on scalar runs also cmt_mesh and the solver's own phases as
+    ``scalar_<phase>``, which lie inside solve and cmt_solve) over all
+    designs; with ``pipeline_buckets`` > 1 two buckets run at
     once, so the sum can exceed the run's wall time.
     """
 
@@ -72,20 +76,16 @@ class DatasetGenerator:
                  out_dir: Optional[Path] = None):
         """
         Args:
-            use_vectorial: must be True; the scalar Helmholtz solver is
-                not ported (ROADMAP A8) and False raises.
+            use_vectorial: full H-field solver (True) or scalar Helmholtz.
             use_cauchy_dispersion: IP-Dip Cauchy n(lambda) instead of the
                 fixed polymer index (README.md:275).
             n_taper_slices: if >= 2, re-solve modes at this many taper
                 cross-sections and run CMT mux/demux (the expensive outer
                 product, geometry_unified.py:367-386); 0 skips CMT.
         """
-        if not use_vectorial:
-            raise NotImplementedError(
-                "the scalar Helmholtz solver is not ported to "
-                "pl_fem_tpu_torch yet (ROADMAP A8); use the vectorial solver")
         self.space = space or ParametricSpace()
         self.config = config or SimulationConfig()
+        self.use_vectorial = use_vectorial
         self.use_cauchy = use_cauchy_dispersion
         self.n_taper_slices = int(n_taper_slices)
         self.base_seed = base_seed
@@ -176,6 +176,18 @@ class DatasetGenerator:
         rec.M_max = pmetrics.get("n_modes_est")
         return geom, pmetrics
 
+    def _solve_scalar(self, geom, dg, n_modes: int, timer: PhaseTimer,
+                      **kw) -> List[Dict]:
+        """One ScalarHelmholtzSolver.solve, its phases added to ``timer``
+        as ``scalar_<phase>``."""
+        solver = ScalarHelmholtzSolver(geom, self.config)
+        try:
+            return solver.solve(dg, n_modes, **kw)
+        finally:
+            for name, dt in solver.last_solve_times.items():
+                key = f"scalar_{name}"
+                timer.times[key] = timer.times.get(key, 0.0) + dt
+
     def _n_modes_target(self, geom) -> int:
         return self.config.n_modes_target or math.ceil(2.8 * geom.n_cores)
 
@@ -249,29 +261,39 @@ class DatasetGenerator:
         consumer must be able to tell which class produced each record.
         """
         s = self.config.solver
-        rec.solver_mode = "bucketed_sweep" if bucketed else "per_design"
-        if s.beta_passes >= 2:
-            # balanced preset = qres-gated like accuracy mode but at a
-            # loosened tol (config.SOLVER_PRESETS); stamp the tol so the
-            # record says which gate certified its roots. The 2e-5
-            # threshold is the JAX package's, kept as written.
-            acc = s.polish_qres_tol <= 2e-5
-            tier = "accuracy" if acc else \
-                f"balanced, qres tol {s.polish_qres_tol:g}"
-            if bucketed:
-                # the ~1e-4 bucket floor is measured at band 0.05
-                # (docs/PARITY_r3.md §A); wider bands admit members
-                # farther from the class geometry, so stamp the band and
-                # only quote the floor where it was measured
-                band = self.config.mesh.bucket_ratio_band
-                floor = ", ~1e-4 floor" if (band <= 0.05 and acc) else ""
-                rec.accuracy_class = f"{tier} (bucket band {band:.2f}{floor})"
-            elif acc:
-                rec.accuracy_class = "accuracy (~2e-6 n_eff)"
-            else:
-                rec.accuracy_class = f"{tier} (per-design)"
+        if not self.use_vectorial:
+            rec.solver_mode = "scalar_cascade"
+            rec.accuracy_class = "scalar LP approximation"
+        elif s.backend == "hybrid":
+            rec.solver_mode = "hybrid_arpack"
+            rec.accuracy_class = ("reference transverse pencil "
+                                  "(~6e-4 model error at air-clad)")
         else:
-            rec.accuracy_class = "fast (~8e-4 n_eff)"
+            rec.solver_mode = "bucketed_sweep" if bucketed else "per_design"
+            if s.beta_passes >= 2:
+                # balanced preset = qres-gated like accuracy mode but at
+                # a loosened tol (config.SOLVER_PRESETS); stamp the tol
+                # so the record says which gate certified its roots. The
+                # 2e-5 threshold is the JAX package's, kept as written.
+                acc = s.polish_qres_tol <= 2e-5
+                tier = "accuracy" if acc else \
+                    f"balanced, qres tol {s.polish_qres_tol:g}"
+                if bucketed:
+                    # the ~1e-4 bucket floor is measured at band 0.05
+                    # (docs/PARITY_r3.md §A); wider bands admit members
+                    # farther from the class geometry, so stamp the band
+                    # and only quote the floor where it was measured
+                    band = self.config.mesh.bucket_ratio_band
+                    floor = ", ~1e-4 floor" if (band <= 0.05 and acc) \
+                        else ""
+                    rec.accuracy_class = (
+                        f"{tier} (bucket band {band:.2f}{floor})")
+                elif acc:
+                    rec.accuracy_class = "accuracy (~2e-6 n_eff)"
+                else:
+                    rec.accuracy_class = f"{tier} (per-design)"
+            else:
+                rec.accuracy_class = "fast (~8e-4 n_eff)"
         if grid is not None and grid.quality is not None:
             rec.mesh_quality_ok = bool(grid.quality_ok)
             rec.mesh_quality_msg = grid.quality_msg
@@ -299,11 +321,22 @@ class DatasetGenerator:
             self._provenance(rec, grid, bucketed=False)
             dg = export_device_grid(grid, self.config.mesh.bucket_rounding)
 
+            n_target = self._n_modes_target(geom)
             diags: Dict[int, str] = {}
             with timer.phase("solve"):
-                modes = TrueVectorialMaxwellSolver.solve_sweep(
-                    [geom], dg, self._n_modes_target(geom), self.config,
-                    diag_out=diags)[0]
+                if not self.use_vectorial:
+                    # scalar CLI path uses the reference's guided-mode
+                    # cascade (main.py:258-288)
+                    modes = self._solve_scalar(geom, dg, n_target, timer,
+                                               mode_filter="cascade")
+                elif self.config.solver.backend == "hybrid":
+                    modes = TrueVectorialMaxwellSolver(
+                        geom, config=self.config).solve_vectorial_modes(
+                            dg, n_target)
+                else:
+                    modes = TrueVectorialMaxwellSolver.solve_sweep(
+                        [geom], dg, n_target, self.config,
+                        diag_out=diags)[0]
             if 0 in diags:
                 # debug_checks diagnosed the design: skip-and-record
                 rec.error_msg = f"solver diagnostic: {diags[0]}"
@@ -323,7 +356,8 @@ class DatasetGenerator:
     # ------------------------------------------------------------------
     def simulate_bucketed(self, samples: Sequence[Dict],
                           on_batch=None) -> List[DatasetRecord]:
-        """Solve many designs as canonical-grid packed sweeps.
+        """Solve many designs as canonical-grid packed sweeps (vectorial
+        only).
 
         Designs are rescaled into canonical buckets (dataset/bucketing
         .py: same layout + radius/pitch class -> one shared mesh), each
@@ -468,13 +502,16 @@ class DatasetGenerator:
                  modes: List[Dict], wl_nm: float, timer: PhaseTimer):
         """Solve local modes along the taper and propagate (CMT).
 
-        Every z-slice of a taper is a uniform rescale of the same
-        cross-section, so ALL slices canonicalize onto one bucket grid
-        (dataset/bucketing.py) and solve as a single packed sweep on the
-        device — one mesh + one filter call instead of a re-mesh +
-        re-solve per slice, and the CMT overlap integrals get a common
-        P2 basis (the reference re-meshes per z and compares fields
-        across incompatible meshes; geometry_unified.py:367-386).
+        Vectorial path: every z-slice of a taper is a uniform rescale of
+        the same cross-section, so ALL slices canonicalize onto one
+        bucket grid (dataset/bucketing.py) and solve as a single packed
+        sweep on the device — one mesh + one filter call instead of a
+        re-mesh + re-solve per slice, and the CMT overlap integrals get
+        a common P2 basis (the reference re-meshes per z and compares
+        fields across incompatible meshes; geometry_unified.py:367-386).
+        Scalar path: every slice is re-meshed and solved on its own, as
+        the reference does, and the fields are zero-padded to a common
+        length.
         """
         L = float(geom.taper_length)
         zs = np.linspace(0.0, L, self.n_taper_slices)
@@ -484,30 +521,51 @@ class DatasetGenerator:
 
         modes_list = []
         delta_eps_mass = None
-        band = self.config.mesh.bucket_ratio_band
+        dg_t = cls_geom = None
         with timer.phase("cmt_solve"):
-            cls_geom = class_geometry(bucket_key(geom, band), geom, band)
-            grid_t = MeshGenerator.generate(
-                cls_geom, self.config.mesh.refinement, self.config)
-            dg_t = export_device_grid(grid_t,
-                                      self.config.mesh.bucket_rounding)
-            pairs = [canonicalize(gz, cls_geom) for gz in geos_z]
-            sweeps = TrueVectorialMaxwellSolver.solve_sweep(
-                [c for c, _ in pairs], dg_t, n_modes, self.config)
-        full = bool(self.config.cmt_full_field)
-        for z, gz, (_, s), mz in zip(zs, geos_z, pairs, sweeps):
-            mz = rescale_modes(mz, s, gz.k0)
-            for m in mz:
-                # overlap field: full transverse stack by default (the
-                # reference integrates the interpolated E field,
-                # config.py:295-302); hx only under cmt_full_field=False
-                m["field_vector"] = np.concatenate(
-                    [m["Ex_dofs"], m["Ey_dofs"]]) if full \
-                    else m["Ex_dofs"]
-            modes_list.append(mz)
+            if self.use_vectorial:
+                band = self.config.mesh.bucket_ratio_band
+                cls_geom = class_geometry(bucket_key(geom, band), geom, band)
+                grid_t = MeshGenerator.generate(
+                    cls_geom, self.config.mesh.refinement, self.config)
+                dg_t = export_device_grid(grid_t,
+                                          self.config.mesh.bucket_rounding)
+                pairs = [canonicalize(gz, cls_geom) for gz in geos_z]
+                sweeps = TrueVectorialMaxwellSolver.solve_sweep(
+                    [c for c, _ in pairs], dg_t, n_modes, self.config)
+                full = bool(self.config.cmt_full_field)
+                for gz, (_, s), mz in zip(geos_z, pairs, sweeps):
+                    mz = rescale_modes(mz, s, gz.k0)
+                    for m in mz:
+                        # overlap field: full transverse stack by default
+                        # (the reference integrates the interpolated E
+                        # field, config.py:295-302); hx only under
+                        # cmt_full_field=False
+                        m["field_vector"] = np.concatenate(
+                            [m["Ex_dofs"], m["Ey_dofs"]]) if full \
+                            else m["Ex_dofs"]
+                    modes_list.append(mz)
+            else:
+                for gz in geos_z:
+                    with timer.phase("cmt_mesh"):
+                        grid_z = MeshGenerator.generate(
+                            gz, self.config.mesh.refinement, self.config)
+                        dg_z = export_device_grid(
+                            grid_z, self.config.mesh.bucket_rounding)
+                    modes_list.append(self._solve_scalar(gz, dg_z, n_modes,
+                                                         timer))
+                # pad fields to a common length (scalar slices re-mesh)
+                dmax = max(len(m["field_vector"])
+                           for ml in modes_list for m in ml)
+                for ml in modes_list:
+                    for m in ml:
+                        v = np.asarray(m["field_vector"])
+                        if len(v) < dmax:
+                            m["field_vector"] = np.concatenate(
+                                [v, np.zeros(dmax - len(v))])
 
         with timer.phase("cmt_propagate"):
-            if self.config.cmt_coupling == "rigorous":
+            if self.use_vectorial and self.config.cmt_coupling == "rigorous":
                 # (eps - mean eps)-weighted mass on the shared bucket
                 # grid: all slices canonicalize onto dg_t, so ONE CSR
                 # serves every segment (reference seam: the per-z skfem
@@ -600,7 +658,8 @@ class DatasetGenerator:
         ``engine='sweep'`` batches designs through canonical-grid
         packed sweeps (:meth:`simulate_bucketed`) instead of the
         reference-style serial per-design loop — same records (solver
-        tolerance apart), shared meshes and filters.
+        tolerance apart), shared meshes and filters. Vectorial only
+        (scalar runs fall back to serial).
         """
         samples = self.sampler.generate_stratified_samples(
             n_samples, quality_threshold=quality_threshold,
@@ -618,7 +677,7 @@ class DatasetGenerator:
                    checkpoint_every: int = 10) -> List[DatasetRecord]:
         """Simulate one batch through the selected engine."""
         out: List[DatasetRecord] = []
-        if engine == "sweep":
+        if engine == "sweep" and self.use_vectorial:
             # checkpoint per completed bucket (a crash loses at most
             # the in-flight bucket, like the serial engine's
             # checkpoint_every)

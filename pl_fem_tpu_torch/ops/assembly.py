@@ -1,9 +1,12 @@
 """Device-side FEM assembly in PyTorch: quadrature factors, permittivity,
 element blocks and the mass diagonal.
 
-Port of pl_fem_tpu/ops/assembly.py for the vectorial sweep path. All
-functions take tensors already on the target device (``grid_to_device``
-and ``grid_from_numpy`` put them there) and return tensors on it.
+Port of pl_fem_tpu/ops/assembly.py for the vectorial sweep path and the
+scalar Helmholtz pencil. All functions take tensors already on the
+target device (``grid_to_device`` and ``grid_from_numpy`` put them
+there) and return tensors on it. The permittivity at the quadrature
+points is K6 (``triton_kernels.eps_at_quadrature``), the scalar element
+blocks K7 (``cuda_kernels.scalar_blocks``).
 
 Matrix convention: blocks[e, i, j] couples test function i with trial
 function j of element e; global A[I, J] = sum_e blocks[e, i, j] over the
@@ -18,6 +21,7 @@ import torch
 from torch.utils.weak import WeakTensorKeyDictionary
 
 from ..models.geometry import EpsParams
+from . import triton_kernels
 
 
 class GridArrays(NamedTuple):
@@ -239,31 +243,14 @@ def eps_arrays(p: EpsParams, device, dtype=torch.float32) -> EpsArrays:
         pml_strength=t(p.pml_strength), pml_order=t(float(p.pml_order)))
 
 
-def points_in_cores(x, y, positions, radii, factor=1.0):
-    """Vectorized any-core membership test."""
-    d2 = ((x[..., None] - positions[:, 0]) ** 2
-          + (y[..., None] - positions[:, 1]) ** 2)
-    return torch.any(d2 <= (factor * radii) ** 2, dim=-1)
-
-
 def eps_at_quadrature(ga: GridArrays, eps: EpsArrays):
-    """Relative permittivity (re, im) at every quadrature point.
+    """Relative permittivity (re, im) at every quadrature point (K6).
 
     Same piecewise-constant + annular-PML model as the geometry layer
     (models/geometry.py ``epsilon_at``), evaluated on device so one grid
     serves any (eps, k0).
     """
-    x = ga.qp_xy[..., 0]
-    y = ga.qp_xy[..., 1]
-    in_core = points_in_cores(x, y, eps.positions, eps.core_radii)
-    eps_re = torch.where(in_core, eps.eps_core, eps.eps_clad)
-    rho = torch.clamp((torch.sqrt(x * x + y * y) - eps.pml_start)
-                      / torch.clamp(eps.pml_thickness, min=1e-30), 0.0, 1.0)
-    sigma = torch.where((eps.pml_thickness > 0.0) & (eps.pml_start > 0.0),
-                        eps.pml_strength * rho ** eps.pml_order,
-                        torch.zeros_like(rho))
-    eps_im = eps_re * sigma
-    return eps_re, eps_im
+    return triton_kernels.eps_at_quadrature(ga.qp_xy, eps)
 
 
 def _wsum(ga: GridArrays, coeff, a, b):
@@ -350,6 +337,25 @@ def assemble_vector3_qf(ga: GridArrays, ea: EpsArrays):
                              gather_scatter(ga))[:, 0]
     diag = torch.where(ga.interior_mask > 0, diag, torch.ones_like(diag))
     return qf, diag
+
+
+def assemble_scalar_system(ga: GridArrays, ea: EpsArrays, k0):
+    """(A, B, diag_B) of the scalar Helmholtz pencil
+    (K - k0^2 M_eps) psi = lambda M psi: the element blocks A and B
+    (E, 6, 6) through K7, and the assembled mass diagonal (D,) through
+    the K2 accumulate at lane count 1, 1.0 on padded DOF rows."""
+    from .cuda_kernels import scalar_blocks
+    from .kernels import _accumulate_fused
+
+    eps_re, _ = eps_at_quadrature(ga, ea)
+    k0 = np.float32(k0)
+    A, B = scalar_blocks(ga.grad_phys, ga.qp_w, ga.shape_vals, eps_re,
+                         float(k0 * k0))
+    diag_e = torch.diagonal(B, dim1=1, dim2=2)
+    diag = _accumulate_fused(diag_e[:, :, None].contiguous(),
+                             gather_scatter(ga))[:, 0]
+    diag = torch.where(ga.dof_valid > 0, diag, torch.ones_like(diag))
+    return A, B, diag
 
 
 def stack_blocks(blocks: Dict, n_components: int) -> torch.Tensor:

@@ -1,11 +1,13 @@
-"""Hand-written CUDA kernels of the filter step (K1-K3), their loader and
-their plain PyTorch twins: K1 the A(beta_b) element math, K2 the
-element -> DOF accumulate, K3 the fused DOF-centric mass apply (plain,
-or one step of the B^{-1} semi-iteration).
+"""Hand-written CUDA kernels, their loader and their plain PyTorch twins:
+K1 the A(beta_b) element math, K2 the element -> DOF accumulate, K3 the
+fused DOF-centric mass apply (plain, or one step of the B^{-1}
+semi-iteration), K5 the element part of the stacked-block apply, K7 the
+scalar pencil's element blocks, K8 the pencil's spectrum bound.
 
 The sources are ``ops/csrc/*.cu``. At first use on a CUDA tensor they
-are compiled with ``nvcc`` for ``sm_90a`` into one shared library with a
-plain C interface under ``pl_fem_tpu_torch/_build/`` and loaded with
+are compiled with ``nvcc`` for ``sm_90a`` (one compiler process per
+source, all started together) and linked into one shared library with a
+plain C interface under ``pl_fem_tpu_torch/_build/``, loaded with
 ``ctypes``; a source newer than the library triggers a rebuild. Each
 wrapper:
 
@@ -43,7 +45,7 @@ _CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 _LIB_NAME = "libpl_fem_kernels.so"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+               "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,6 +56,10 @@ _SIGNATURES = {
     "pl_accumulate": [_P, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _P, _P],
     "pl_mass_apply": [_P] * 14 + [_F] * 4 + [_I] * 6 + [_P],
+    "pl_apply_stacked": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "pl_scalar_blocks": [_P, _P, _P, _P, _F, _I, _I, _P, _P, _P],
+    "pl_pencil_bounds_blocks": [_I, _I],
+    "pl_pencil_bounds": [_P, _P, _P, _P, _F, _F, _I, _I, _P, _P, _P],
 }
 _LIB: Optional[ctypes.CDLL] = None
 _LOCK = threading.Lock()
@@ -68,22 +74,40 @@ def _nvcc() -> str:
 def build(verbose: bool = False) -> Path:
     """Compile every ``csrc/*.cu`` into the kernel library; return its path.
 
-    Builds to a file name private to this process and thread and
-    renames it into place, so a concurrent build never loads or
-    overwrites a half-written library.
+    Every source is compiled to an object by its own ``nvcc`` process,
+    all started together, and the objects are linked into the library.
+    Objects and library are written under names private to this process
+    and thread and the library is renamed into place, so a concurrent
+    build never loads or overwrites a half-written file.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = BUILD_DIR / _LIB_NAME
-    tmp = BUILD_DIR / f".{_LIB_NAME}.{os.getpid()}.{threading.get_ident()}"
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(_CSRC.glob("*.cu")))]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose:
-        print(res.stdout + res.stderr)
+    tag = f"{os.getpid()}.{threading.get_ident()}"
+    tmp = BUILD_DIR / f".{_LIB_NAME}.{tag}"
+    srcs = sorted(_CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f".{src.stem}.{tag}.o" for src in srcs]
+    flags = _NVCC_FLAGS + (["-Xptxas=-v"] if verbose else [])
+    procs = [subprocess.Popen(
+        [_nvcc(), *flags, "-c", "-o", str(obj), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for src, obj in zip(srcs, objs)]
+    try:
+        logs = [p.communicate() for p in procs]
+        for src, p, (so, se) in zip(srcs, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} "
+                                   f"({p.returncode}):\n{se}")
+            if verbose:
+                print(so + se)
+        res = subprocess.run(
+            [_nvcc(), *_NVCC_FLAGS, "-shared", "-o", str(tmp),
+             *map(str, objs)], capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{res.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)
     return out
 
@@ -439,3 +463,161 @@ def mass_apply(X, gs, w, N, mask, park: float = 1.0,
 
 
 mass_apply.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5: element part of the stacked-block apply
+# ---------------------------------------------------------------------------
+
+def apply_stacked_elem_plain(X, mask, elem_dofs, Abig, C: int):
+    """Plain twin of K5: gather the masked rows and multiply by the
+    element blocks, as pl_fem_tpu/ops/kernels.py ``_apply_stacked`` does
+    before its accumulate. Returns (C, E, 6, k)."""
+    D = mask.shape[0]
+    E = elem_dofs.shape[0]
+    k = X.shape[1]
+    ed = torch.cat([elem_dofs.long() + c * D for c in range(C)], dim=1)
+    Xm = X * mask.repeat(C)[:, None]
+    Ye = torch.einsum("eij,ejk->eik", Abig, Xm[ed])        # (E, 6C, k)
+    return Ye.reshape(E, C, 6, k).permute(1, 0, 2, 3).contiguous()
+
+
+def apply_stacked_elem(X, mask, elem_dofs, Abig, C: int):
+    """K5 (``csrc/apply_stacked.cu``): Ye_e = A_e (m X)_e.
+
+    X (C * D, k) f32, the stacked component-major block (unmasked: the
+    kernel multiplies each gathered row by ``mask`` (D,)); elem_dofs
+    (E, 6) int32; Abig (E, 6C, 6C) f32; C is 1 or 3. Returns Ye
+    (C, E, 6, k): slab c is the (E, 6, k) block K2 sums into rows
+    [c D, (c + 1) D), one K2 launch per component.
+    """
+    if X.device.type == "cpu":
+        return apply_stacked_elem_plain(X, mask, elem_dofs, Abig, C)
+    dev = X.device
+    D = mask.shape[0]
+    E = elem_dofs.shape[0]
+    k = X.shape[1]
+    f32 = torch.float32
+    if C not in (1, 3):
+        raise ValueError(f"the stacked apply takes C = 1 or 3, got {C}")
+    _require(X, "X", f32, dev, (C * D, k))
+    _require(mask, "mask", f32, dev, (D,))
+    _require(elem_dofs, "elem_dofs", torch.int32, dev, (E, 6))
+    _require(Abig, "Abig", f32, dev, (E, 6 * C, 6 * C))
+    Ye = torch.empty((C, E, 6, k), dtype=f32, device=dev)
+    rc = lib().pl_apply_stacked(
+        X.data_ptr(), mask.data_ptr(), elem_dofs.data_ptr(), Abig.data_ptr(),
+        E, D, k, C, Ye.data_ptr(), _stream(dev))
+    _check(rc, "apply_stacked_elem")
+    _count(apply_stacked_elem)
+    return Ye
+
+
+apply_stacked_elem.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K7: the scalar Helmholtz pencil's element blocks
+# ---------------------------------------------------------------------------
+
+def scalar_blocks_plain(grad_phys, qp_w, N, eps_re, k2):
+    """Plain twin of K7: the weighted sums of pl_fem_tpu/ops/assembly.py
+    ``scalar_blocks`` and A = K - k0^2 Me of ``assemble_scalar_system``.
+    Returns (A, B), both (E, 6, 6)."""
+    gx = grad_phys[..., 0]
+    gy = grad_phys[..., 1]
+    Nq = N[None].expand(qp_w.shape + (6,))
+
+    def wsum(coeff, a, b):
+        return torch.einsum("eq,eqi,eqj->eij", coeff, a, b)
+
+    K = wsum(qp_w, gx, gx) + wsum(qp_w, gy, gy)
+    Me = wsum(qp_w * eps_re, Nq, Nq)
+    return K - k2 * Me, wsum(qp_w, Nq, Nq)
+
+
+def scalar_blocks(grad_phys, qp_w, N, eps_re, k2: float):
+    """K7 (``csrc/scalar_blocks.cu``): A = K - k2 Me and B = M.
+
+    grad_phys (E, Q, 6, 2), qp_w (E, Q), N (Q, 6) and eps_re (E, Q), all
+    f32; ``k2`` is k0^2. Returns (A, B), both (E, 6, 6) f32.
+    """
+    if qp_w.device.type == "cpu":
+        return scalar_blocks_plain(grad_phys, qp_w, N, eps_re, k2)
+    dev = qp_w.device
+    E, Q = qp_w.shape
+    f32 = torch.float32
+    _require(grad_phys, "grad_phys", f32, dev, (E, Q, 6, 2))
+    _require(qp_w, "qp_w", f32, dev)
+    _require(N, "N", f32, dev, (Q, 6))
+    _require(eps_re, "eps_re", f32, dev, (E, Q))
+    A = torch.empty((E, 6, 6), dtype=f32, device=dev)
+    B = torch.empty((E, 6, 6), dtype=f32, device=dev)
+    rc = lib().pl_scalar_blocks(
+        grad_phys.data_ptr(), qp_w.data_ptr(), N.data_ptr(),
+        eps_re.data_ptr(), float(k2), E, Q, A.data_ptr(), B.data_ptr(),
+        _stream(dev))
+    _check(rc, "scalar_blocks")
+    _count(scalar_blocks)
+    return A, B
+
+
+scalar_blocks.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K8: the pencil's spectrum bound
+# ---------------------------------------------------------------------------
+
+def pencil_bounds_plain(Abig, Bblk, elem_valid, Linv, trace_ref: float,
+                        C: int):
+    """Plain twin of K8: 1.02 x the largest Gershgorin row sum of
+    Linv (A_e / |detJ|_e) Linv^T over the valid elements (the body of
+    pl_fem_tpu/ops/kernels.py ``pencil_bounds_elem``). 0-d tensor."""
+    dtype = Abig.dtype
+    detj = torch.diagonal(Bblk, dim1=1, dim2=2).sum(-1) / trace_ref
+    tiny = float(torch.finfo(dtype).tiny) * 1e3
+    detj = torch.where(elem_valid, torch.clamp(detj, min=tiny),
+                       torch.ones_like(detj))
+    Linv3 = torch.block_diag(*([Linv.to(dtype)] * C))
+    W = torch.einsum("ij,ejk,lk->eil", Linv3, Abig / detj[:, None, None],
+                     Linv3)
+    rows = W.abs().sum(dim=2).amax(dim=1)                  # (E,) Gershgorin
+    return torch.where(elem_valid, rows, torch.zeros_like(rows)).max() * 1.02
+
+
+def pencil_bounds(Abig, Bblk, elem_valid, Linv, trace_ref: float, C: int):
+    """K8 (``csrc/pencil_bounds.cu``): the spectrum bound of (A, B).
+
+    Abig (E, 6C, 6C) and Bblk (E, 6, 6) f32, elem_valid (E,) bool, Linv
+    (6, 6) f32 the inverse Cholesky factor of the reference mass,
+    ``trace_ref`` that mass's trace; C is 1 or 3. Returns a 0-d f32
+    tensor on the device of ``Abig``. Two launches (rows, then the
+    maximum over the blocks' partials) count as one.
+    """
+    if Abig.device.type == "cpu":
+        return pencil_bounds_plain(Abig, Bblk, elem_valid, Linv, trace_ref, C)
+    dev = Abig.device
+    E = Abig.shape[0]
+    f32 = torch.float32
+    if C not in (1, 3):
+        raise ValueError(f"the pencil bound takes C = 1 or 3, got {C}")
+    _require(Abig, "Abig", f32, dev, (E, 6 * C, 6 * C))
+    _require(Bblk, "Bblk", f32, dev, (E, 6, 6))
+    _require(elem_valid, "elem_valid", torch.bool, dev, (E,))
+    _require(Linv, "Linv", f32, dev, (6, 6))
+    L = lib()
+    partial = torch.empty((L.pl_pencil_bounds_blocks(E, C),), dtype=f32,
+                          device=dev)
+    out = torch.empty((), dtype=f32, device=dev)
+    rc = L.pl_pencil_bounds(
+        Abig.data_ptr(), Bblk.data_ptr(), elem_valid.data_ptr(),
+        Linv.data_ptr(), float(trace_ref),
+        float(torch.finfo(f32).tiny) * 1e3, E, C, partial.data_ptr(),
+        out.data_ptr(), _stream(dev))
+    _check(rc, "pencil_bounds")
+    _count(pencil_bounds)
+    return out
+
+
+pencil_bounds.launches = 0

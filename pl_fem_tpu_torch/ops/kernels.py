@@ -1,6 +1,8 @@
-"""The packed same-grid sweep eigensolver (Chebyshev filter + Rayleigh-Ritz).
+"""The Chebyshev-filter eigensolvers (filter + Rayleigh-Ritz): the packed
+same-grid sweep of the vectorial solver and the stacked-block solver of
+the scalar Helmholtz pencil.
 
-Port of the sweep path of pl_fem_tpu/ops/kernels.py. B designs that
+Port of pl_fem_tpu/ops/kernels.py. In the sweep, B designs that
 share one mesh are packed along the lane axis: the filter state is the
 fused-lane block (D, B, 3, k), viewed as (D, L) with L = B * 3 * k for
 the operator applies, so every gather and accumulate serves all
@@ -15,6 +17,15 @@ recurrence step (K4). The dense per-design Rayleigh-Ritz steps are
 ``torch.linalg``. ``_apply_mass_fused_plain`` and
 ``_apply_binv_fused_plain`` keep the unfused form of the mass path as
 the reference the kernel is held against.
+
+The stacked form (``_apply_stacked`` .. ``solve_lowest_kernel``) applies
+a C-component operator from its assembled (E, 6C, 6C) element blocks to
+the component-major block (C D, k): K5 (``apply_stacked_elem``) for the
+gather and the per-element product, K2 once per component for the sum
+and the mask / park epilogue, K3 once per component and degree step for
+B^{-1}, K4 for the recurrence on the block viewed as (C D, 1, 1, k).
+C = 1 is the scalar pencil. The spectrum bound both solvers start from
+is K8 (``pencil_bounds_elem``).
 """
 from __future__ import annotations
 
@@ -27,8 +38,9 @@ import numpy as np
 import torch
 
 from .assembly import MassPlan
-from .cuda_kernels import (BinvStep, accumulate, apply_vector3_elem,
-                           mass_apply, mass_apply_plain)
+from .cuda_kernels import (BinvStep, accumulate, apply_stacked_elem,
+                           apply_vector3_elem, mass_apply, mass_apply_plain,
+                           pencil_bounds)
 from .quadrature import RULES, p2_shape
 from .triton_kernels import cheb_step
 
@@ -185,10 +197,18 @@ def _apply_binv_fused_plain(qs: QFactorSweep, gs: GatherScatter, mask,
 
 def _apply_binv_fused(qs: QFactorSweep, gs: GatherScatter, mask, dinv_sqrt,
                       lo, hi, Xl, degree: int):
-    """The same semi-iteration as ``degree`` K3 launches in step mode:
-    each fuses the mass apply with the step's R, Z and Dd updates, so no
-    torch elementwise op runs between them. Dd ping-pongs between fresh
-    outputs; R and Z are updated in place."""
+    """The same semi-iteration as ``degree`` K3 launches in step mode
+    (``_binv_steps`` on the sweep's quadrature weights)."""
+    return _binv_steps(qs.w, gs, mask, dinv_sqrt, lo, hi, Xl, degree)
+
+
+def _binv_steps(w, gs: GatherScatter, mask, dinv_sqrt, lo, hi, Xl,
+                degree: int):
+    """Chebyshev B^{-1} semi-iteration on a (D, L) block as ``degree`` K3
+    launches in step mode: each fuses the mass apply (weights ``w``
+    (E, Q)) with the step's R, Z and Dd updates, so no torch elementwise
+    op runs between them. Dd ping-pongs between fresh outputs; R and Z
+    are updated in place."""
     if degree < 1:
         raise ValueError(f"B^-1 degree {degree} < 1 (degree 0 is the "
                          "lumped inverse of _sweep_apply_t)")
@@ -202,7 +222,7 @@ def _apply_binv_fused(qs: QFactorSweep, gs: GatherScatter, mask, dinv_sqrt,
     rho = 1.0 / sigma1
     for i in range(degree):
         rho_new = 1.0 / (2.0 * sigma1 - rho)
-        V = mass_apply(V, gs, qs.w, N, mask, step=BinvStep(
+        V = mass_apply(V, gs, w, N, mask, step=BinvStep(
             dinv_sqrt, R, Z, rho_new * rho, 2.0 * rho_new / delta, theta,
             first=i == 0, last=i == degree - 1))
         rho = rho_new
@@ -403,8 +423,13 @@ _HRZ_SCALE = float(np.float32(_QW_REF).sum() / np.trace(_B_REF))
 _LUMP_BOUND = 1.40
 
 
+@functools.lru_cache(maxsize=None)
+def _linv_ref_on(device: str) -> torch.Tensor:
+    return torch.as_tensor(_LINV_REF, dtype=torch.float32, device=device)
+
+
 def pencil_bounds_elem(Abig, Bblk, elem_valid, C: int = 1):
-    """Deterministic spectrum bounds from per-element quotients.
+    """Deterministic spectrum bounds from per-element quotients (K8).
 
         spec(D_B^{-1} B)  subset  [MASS_LO, MASS_HI]
         |spec(B^{-1} A)|  <=  max_e |L_ref^{-1} (A_e/|detJ|_e) L_ref^{-T}|
@@ -413,18 +438,187 @@ def pencil_bounds_elem(Abig, Bblk, elem_valid, C: int = 1):
     congruence-transformed blocks. Returns (lo_B, hi_B, bound_A), the
     last a 0-d tensor on the device of ``Abig``.
     """
-    dtype = Abig.dtype
-    dev = Abig.device
-    detj = (torch.diagonal(Bblk, dim1=1, dim2=2).sum(-1)
-            / torch.as_tensor(np.trace(_B_REF), dtype=dtype, device=dev))
-    tiny = float(torch.finfo(dtype).tiny) * 1e3
-    detj = torch.where(elem_valid, torch.clamp(detj, min=tiny),
-                       torch.ones_like(detj))
-    Lref = torch.as_tensor(_LINV_REF, dtype=dtype, device=dev)
-    Linv3 = torch.block_diag(*([Lref] * C))
-    W = torch.einsum("ij,ejk,lk->eil", Linv3, Abig / detj[:, None, None],
-                     Linv3)
-    rows = W.abs().sum(dim=2).amax(dim=1)                  # (E,) Gershgorin
-    bound_A = torch.where(elem_valid, rows, torch.zeros_like(rows)).max() \
-        * 1.02
+    bound_A = pencil_bounds(Abig, Bblk, elem_valid,
+                            _linv_ref_on(str(Abig.device)),
+                            float(np.trace(_B_REF)), C)
     return np.float32(MASS_LO), np.float32(MASS_HI), bound_A
+
+
+# ---------------------------------------------------------------------------
+# the stacked-block solver (scalar pencil: C = 1)
+# ---------------------------------------------------------------------------
+
+def _accumulate(Ye, gs: GatherScatter, X=None, mask=None, park=None):
+    """(C, E, 6, k) element results -> (C D, k) DOF sums, one K2 launch
+    per component, with the optional epilogue on X (C D, k), mask (D,)
+    and park (k,)."""
+    C = Ye.shape[0]
+    D = gs.idx_v.shape[0] + gs.idx_e.shape[0]
+    parts = [_accumulate_fused(Ye[c], gs,
+                               None if X is None else X[c * D:(c + 1) * D],
+                               mask, park) for c in range(C)]
+    return parts[0] if C == 1 else torch.cat(parts, dim=0)
+
+
+def _park_lanes(park, k: int, like: torch.Tensor) -> torch.Tensor:
+    """``park`` as the (k,) per-lane vector K2 takes."""
+    if isinstance(park, torch.Tensor) and park.dim() == 1:
+        return park
+    return torch.full((k,), float(park), dtype=like.dtype, device=like.device)
+
+
+def _apply_stacked(Abig, gs: GatherScatter, mask, park, X, C: int):
+    """P A P X + park (I - P) X for the stacked (E, 6C, 6C) operator on
+    the component-major block X (C D, k): K5, then K2 per component.
+    ``park`` is a float or a (k,) tensor."""
+    Ye = apply_stacked_elem(X, mask, gs.elem_dofs, Abig, C)
+    return _accumulate(Ye, gs, X, mask, _park_lanes(park, X.shape[1], X))
+
+
+def _apply_mass(w, gs: GatherScatter, mask, X, C: int, park: float = 1.0):
+    """Block-diagonal consistent-mass apply on X (C D, k), one K3 launch
+    per component. The mass blocks are sum_q w N N, which K3 builds from
+    the quadrature weights ``w`` (E, Q) and the shape table."""
+    D = mask.shape[0]
+    N = shape_table(X.device)
+    parts = [mass_apply(X[c * D:(c + 1) * D], gs, w, N, mask, park)
+             for c in range(C)]
+    return parts[0] if C == 1 else torch.cat(parts, dim=0)
+
+
+def _apply_binv(w, gs: GatherScatter, mask, dinv_sqrt, lo, hi, X, C: int,
+                degree: int):
+    """Chebyshev semi-iteration for B^{-1} on the Jacobi-scaled mass,
+    per component of X (C D, k): ``degree`` K3 launches each."""
+    D = mask.shape[0]
+    parts = [_binv_steps(w, gs, mask, dinv_sqrt, lo, hi,
+                         X[c * D:(c + 1) * D], degree) for c in range(C)]
+    return parts[0] if C == 1 else torch.cat(parts, dim=0)
+
+
+def cheb_rr_pass_impl(Abig, w, gs, mask, dinv_sqrt, lo, hi, park, X, cut,
+                      bound, C: int = 1, degree: int = 300,
+                      binv_degree: int = 8, renorm_every: int = 8):
+    """Low-end Chebyshev filter + QR-stabilized Rayleigh-Ritz, one pass.
+
+    Pure float32 on the device; final eigenvalue accuracy comes from the
+    host float64 polish (ops/host_assembly.py).
+
+    Args:
+        Abig: (E, 6C, 6C) stacked operator blocks, f32.
+        w: (E, Q) quadrature weights (the mass blocks are sum_q w N N).
+        X: (C D, k) f32 subspace from the previous pass (or random).
+        cut / bound: wanted eigenvalues lie below ``cut``; unwanted
+            within [cut, bound] (floats or 0-d tensors).
+
+    Returns:
+        theta (k,) ascending, X (C D, k) B-orthonormal Ritz vectors
+        (f32), resnorm (k,).
+    """
+    f32 = torch.float32
+    dev = X.device
+    CD, k = X.shape
+    c = (0.5 * (bound + cut)).to(f32).reshape(1).contiguous()
+    h = (0.5 * (bound - cut)).to(f32).reshape(1).contiguous()
+    pk = _park_lanes(park, k, X)
+
+    def apply_w(V):
+        W = _apply_stacked(Abig, gs, mask, pk, V, C)
+        return _apply_binv(w, gs, mask, dinv_sqrt, lo, hi, W, C, binv_degree)
+
+    def step(V, T0, renorm=False):
+        # K4 on the block viewed as (C D, 1, 1, k): one design, and the
+        # column norm over all C D rows
+        shape = (CD, 1, 1, k)
+        return cheb_step(apply_w(V).view(shape), V.view(shape),
+                         None if T0 is None else T0.view(shape), c, h,
+                         renorm=renorm).view(CD, k)
+
+    T0 = X.to(f32).contiguous()
+    T1 = step(T0, None)
+    for i in range(1, degree):
+        T2 = step(T1, T0, (i % renorm_every) == (renorm_every - 1))
+        T0, T1 = T1, T2
+    Xf = T1
+
+    # QR basis (stable for near-collinear filtered columns), then
+    # Rayleigh-Ritz via a Cholesky congruence of the small (k, k) Gram.
+    Q = torch.linalg.qr(Xf)[0].contiguous()
+    AQ = _apply_stacked(Abig, gs, mask, pk, Q, C)
+    BQ = _apply_mass(w, gs, mask, Q, C)
+    H = Q.T @ AQ
+    G = Q.T @ BQ
+    H = 0.5 * (H + H.T)
+    G = 0.5 * (G + G.T)
+    G = G + (1e-6 * torch.trace(G) / k) * torch.eye(k, dtype=f32, device=dev)
+    Lc = torch.linalg.cholesky(G)
+    Hw = torch.linalg.solve_triangular(Lc, H, upper=False)
+    Hw = torch.linalg.solve_triangular(Lc, Hw.T, upper=False)
+    Hw = 0.5 * (Hw + Hw.T)
+    theta, Wv = torch.linalg.eigh(Hw)
+    Y = torch.linalg.solve_triangular(Lc.T, Wv, upper=True)
+    Xr = Q @ Y
+    AXr = AQ @ Y
+    BXr = BQ @ Y
+    R = AXr - BXr * theta[None, :]
+    res = (torch.linalg.vector_norm(R, dim=0)
+           / (torch.linalg.vector_norm(AXr, dim=0) + 1e-30))
+    return theta, Xr, res
+
+
+def solve_lowest_kernel(Abig, Bblk, gs, mask, diag_B, X0, cut, elem_valid,
+                        w, C: int = 1, degree: int = 300, passes: int = 2,
+                        tol: float = 1e-7, max_passes: int = 10,
+                        park: float = 1.0, binv_degree: int = 8,
+                        n_wanted: int = 0):
+    """Adaptive filter / Rayleigh-Ritz passes until the wanted residuals
+    are below tol.
+
+    Abig (E, 6C, 6C) and Bblk (E, 6, 6) are the element blocks of the
+    pencil (Bblk enters only the spectrum bound; the mass applies build
+    the same blocks from ``w`` (E, Q) inside K3). X0 (C D, k), a tensor
+    or a numpy array, is moved to the device of ``Abig``. After
+    ``passes`` passes the loop reads theta and res on the host every
+    pass and stops once the worst wanted residual is below
+    max(tol, 5e-6) or improves by less than 30%.
+    Returns theta (k,), Xr (C D, k) and res (k,).
+    """
+    dev = Abig.device
+    f32 = torch.float32
+    lo, hi, bound = pencil_bounds_elem(Abig, Bblk, elem_valid, C=C)
+    dinv_sqrt = (1.0 / torch.sqrt(torch.clamp(diag_B.to(f32), min=1e-30)))
+    cut = float(cut)
+    bound = torch.clamp(bound, min=max(park * 1.05, cut * 1.5 + 1.0))
+    cut_t = torch.tensor(cut, dtype=f32, device=dev)
+
+    # f32 filtering floors around a few 1e-6 relative residual; the host
+    # float64 polish recovers full accuracy from a subspace at that
+    # level. Stall detection: stop when the wanted residual no longer
+    # improves.
+    eff_tol = max(tol, 5e-6)
+    if not isinstance(X0, torch.Tensor):
+        X0 = torch.tensor(np.asarray(X0, dtype=np.float32))
+    X = X0.to(device=dev, dtype=f32)
+    theta = Xr = res = None
+    prev = np.inf
+    for ip in range(max_passes):
+        t0 = time.perf_counter()
+        theta, Xr, res = cheb_rr_pass_impl(
+            Abig, w, gs, mask, dinv_sqrt, lo, hi, park, X, cut_t, bound,
+            C=C, degree=degree, binv_degree=binv_degree)
+        X = Xr
+        if ip + 1 >= passes:
+            th = theta.cpu().numpy()
+            rs = res.cpu().numpy()
+            wanted = th < cut
+            if n_wanted > 0:
+                # only the n_wanted lowest matter (theta is ascending)
+                wanted = wanted & (np.arange(len(th)) < n_wanted)
+            maxres = rs[wanted].max() if wanted.any() else rs.min()
+            _log.debug("stacked pass %d (deg %d, binv %d): %.2fs "
+                       "maxres=%.2e", ip, degree, binv_degree,
+                       time.perf_counter() - t0, maxres)
+            if maxres < eff_tol or maxres > 0.7 * prev:
+                break
+            prev = maxres
+    return theta, Xr, res

@@ -2,6 +2,7 @@
 sweep's phase seconds, on one NVIDIA GPU.
 
     python3 pl_fem_tpu_torch/profile_design.py [--repo DIR] [--out FILE]
+        [--scalar]
 
 ``--repo`` names the checkout whose ``pl_fem_tpu_torch`` is measured
 (default: the one holding this file; it must have ``workloads.py`` and
@@ -18,6 +19,11 @@ in ``pl_fem_tpu_torch/workloads.py``. Two measurements:
    prints the wall time, the device time (the sum of the kernel and
    copy intervals), the device's idle share and the device time by
    kernel family.
+
+``--scalar`` measures instead one scalar design: the 5-core sample of
+the scalar run's draw (``workloads.scalar_dataset_argv``, the serial
+loop: one solve plus a re-mesh and a solve per CMT slice), warm, under
+the profiler, with the scalar solver's own phase seconds.
 
 Prints one JSON object as its last line; ``--out`` also writes it.
 """
@@ -39,6 +45,10 @@ FAMILIES = (
     ("K2 accumulate", ("accumulate",)),
     ("K3 mass apply", ("mass_apply", "apply_mass_elem")),
     ("K4 cheb_step (Triton)", ("_step", "_colnorm", "_rescale")),
+    ("K5 apply_stacked_elem", ("apply_stacked",)),
+    ("K6 eps_at_quadrature (Triton)", ("_eps",)),
+    ("K7 scalar_blocks", ("scalar_blocks",)),
+    ("K8 pencil_bounds", ("pencil_rows", "pencil_max")),
     ("torch elementwise", ("elementwise",)),
     ("torch reductions", ("reduce_kernel", "reduction")),
     ("copies and fills", ("memcpy", "memset")),
@@ -88,8 +98,10 @@ def config1_sweeps(n: int):
     return {"D": int(dg.n_dofs_padded), "runs": runs}
 
 
-def dataset_design(n_cores: int = 7):
-    """The warm profile of one r5 dataset design (see the module note)."""
+def dataset_design(n_cores: int = 7, scalar: bool = False):
+    """The warm profile of one r5 dataset design (see the module note):
+    through the sweep engine, or with ``scalar`` through the serial
+    scalar pipeline."""
     import tempfile
 
     import torch
@@ -99,20 +111,27 @@ def dataset_design(n_cores: int = 7):
     from pl_fem_tpu_torch import workloads as wl
 
     with tempfile.TemporaryDirectory(prefix="profile_design_") as tmp:
-        gen, args = cli.generator(wl.dataset_argv(tmp))
+        gen, args = cli.generator(wl.scalar_dataset_argv(tmp) if scalar
+                                  else wl.dataset_argv(tmp))
         samples = gen.sampler.generate_stratified_samples(
             args.n, quality_threshold=args.quality_threshold,
             ensure_diversity=True)
         sample = next(s for s in samples if int(s["n_cores"]) == n_cores)
+
+        def simulate():
+            if scalar:
+                return gen.simulate_sample(sample)
+            return gen.simulate_bucketed([sample])[0]
+
         t0 = time.perf_counter()
-        gen.simulate_bucketed([sample])
+        simulate()
         torch.cuda.synchronize()
         cold = time.perf_counter() - t0
         gen.phase_times.clear()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            rec = gen.simulate_bucketed([sample])[0]
+            rec = simulate()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     by_name, spans = {}, []
@@ -147,7 +166,8 @@ def dataset_design(n_cores: int = 7):
                                    key=lambda kv: -kv[1]["ms"])),
         "top_kernels": [{"name": k[:120], "launches": n, "ms": t / 1e3}
                         for k, (n, t) in top]}
-    print(f"dataset design {out['sample']} ({n_cores} cores, "
+    print(f"{'scalar ' if scalar else ''}dataset design {out['sample']} "
+          f"({n_cores} cores, "
           f"{rec.n_dofs} DOFs): cold {cold:.1f} s, warm {wall:.1f} s, "
           f"device {busy / 1e3:.0f} ms, idle "
           f"{100 * out['device_idle_share']:.1f}%", flush=True)
@@ -161,6 +181,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--repo", default=str(HERE.parent))
     ap.add_argument("--out", default=None)
+    ap.add_argument("--scalar", action="store_true",
+                    help="profile one scalar dataset design instead")
     args = ap.parse_args(argv)
     repo = Path(args.repo).resolve()
     if sys.path and Path(sys.path[0] or ".").resolve() == HERE:
@@ -176,9 +198,13 @@ def main(argv=None) -> int:
     card = _card()
     print(f"card: {card}; package {Path(pl_fem_tpu_torch.__file__).parent}",
           flush=True)
-    result = {"card": card, "repo": str(repo),
-              "config1": config1_sweeps(SWEEPS),
-              "dataset_design": dataset_design()}
+    if args.scalar:
+        result = {"card": card, "repo": str(repo),
+                  "scalar_dataset_design": dataset_design(5, scalar=True)}
+    else:
+        result = {"card": card, "repo": str(repo),
+                  "config1": config1_sweeps(SWEEPS),
+                  "dataset_design": dataset_design()}
     line = json.dumps(result)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -1,4 +1,4 @@
-"""Vectorial H-field Maxwell eigenmode solver (device backend).
+"""Vectorial H-field Maxwell eigenmode solver.
 
 Port of pl_fem_tpu/solvers/vectorial.py. The transverse pencil's guided
 modes are *interior* eigenvalues (the reason the reference needs ARPACK
@@ -19,6 +19,12 @@ pattern CSRs (ops/host_assembly.py).
 
 The device is explicit: ``SolverConfig.device`` names it, and every
 tensor of a solve is created there.
+
+``SolverConfig.backend == "hybrid"`` makes ``solve_vectorial_modes``
+run the reference-identical transverse pencil through scipy ARPACK
+shift-invert on the host instead (``_solve_hybrid``): the cross-
+formulation oracle. ``solve_sweep`` is the device filter under either
+backend, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -41,12 +47,16 @@ from ..ops.assembly import (
     grid_to_device,
     vector3_stacked_A,
 )
+from ..ops.eig import scipy_eigsh_pencil
 from ..ops.femgrid import DeviceGrid, FEMGrid, MeshGenerator, export_device_grid
 from ..ops.host_assembly import (
     HostVector3,
     build_host_vector3,
     build_host_vector3_family,
+    eps_at_quadrature_np,
     quadratic_subspace,
+    scalar_pattern,
+    vector3_prims_np,
 )
 from ..ops.kernels import QFactorSweep, pencil_bounds_elem, solve_lowest_sweep
 from .postproc import polarization_from_powers, polarization_label
@@ -163,10 +173,14 @@ def _as_device_grid(grid, config: SimulationConfig) -> DeviceGrid:
     raise TypeError(f"expected FEMGrid or DeviceGrid, got {type(grid)}")
 
 
-def _device_of(cfg: SimulationConfig) -> torch.device:
-    if cfg.solver.backend != "device":
+def _check_backend(cfg: SimulationConfig) -> None:
+    if cfg.solver.backend not in ("device", "hybrid"):
         raise ValueError(f"unknown solver backend {cfg.solver.backend!r}; "
-                         f"this package implements 'device'")
+                         f"use 'device' or 'hybrid'")
+
+
+def _device_of(cfg: SimulationConfig) -> torch.device:
+    _check_backend(cfg)
     dev = torch.device(cfg.solver.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"SolverConfig.device={cfg.solver.device!r} but "
@@ -245,18 +259,103 @@ class TrueVectorialMaxwellSolver:
         self.config = config or SimulationConfig()
 
     # ------------------------------------------------------------------
-    def solve_vectorial_modes(self, grid=None,
-                              n_modes_target: int = 20) -> List[Dict]:
-        """Solve for guided vectorial modes of this geometry (the packed
-        sweep machinery with B = 1)."""
+    def solve_vectorial_modes(self, grid=None, n_modes_target: int = 20,
+                              sigma: Optional[float] = None) -> List[Dict]:
+        """Solve for guided vectorial modes of this geometry.
+
+        Device backend: the packed sweep machinery with B = 1. Hybrid
+        backend: ARPACK shift-invert on the host; ``sigma`` (hybrid
+        only) overrides its shift-invert target beta^2. The reference's
+        LP01-derived shift (solver_fem.py:187-193) lands inside the
+        dense penalty-spurious branch on high-contrast geometries;
+        seeding sigma from a device solve's beta_max^2 aims ARPACK at
+        the physical cluster.
+        """
         cfg = self.config
-        _device_of(cfg)
+        _check_backend(cfg)
+        hybrid = cfg.solver.backend == "hybrid"
+        if not hybrid:
+            _device_of(cfg)
         if grid is None:
             grid = MeshGenerator.generate(self.geometry,
                                           cfg.mesh.refinement, cfg)
         dg = _as_device_grid(grid, cfg)
+        if hybrid:
+            hv = build_host_vector3(dg, self.geometry.eps_params(),
+                                    cfg.solver.alpha_penalty)
+            betas, hx, hy, hz = self._solve_hybrid(dg, n_modes_target,
+                                                   sigma=sigma)
+            return self._postprocess(hv, dg, betas, hx, hy, hz,
+                                     n_modes_target)
         return type(self).solve_sweep([self.geometry], dg, n_modes_target,
                                       cfg)[0]
+
+    # -- hybrid backend: reference-identical transverse pencil ----------
+    def _solve_hybrid(self, dg: DeviceGrid, n_modes_target: int,
+                      sigma: Optional[float] = None):
+        import scipy.sparse as sp
+
+        g = self.geometry
+        ap = self.config.solver.alpha_penalty
+        eps_re, _ = eps_at_quadrature_np(dg, g.eps_params())
+        prim = vector3_prims_np(dg, eps_re)
+        spat = scalar_pattern(dg)
+        T = dg.n_elems
+        k2 = self.k0**2
+
+        def csr(blocks):
+            return spat.with_blocks(
+                np.ascontiguousarray(blocks[:T]).ravel())
+
+        # transverse pencil forms (solver_fem.py:131-167) from primitives
+        Axx = csr(prim["i_gygy"] + ap * prim["u_gxgx"] - k2 * prim["u_nn"])
+        Ayy = csr(prim["i_gxgx"] + ap * prim["u_gygy"] - k2 * prim["u_nn"])
+        Axy = csr(-prim["i_gxgy"] + ap * np.swapaxes(prim["u_gxgy"], 1, 2))
+        Binv = csr(prim["i_nn"])
+
+        n = dg.n_dofs
+        A = sp.bmat([[Axx, Axy], [Axy.T, Ayy]], format="csr")
+        B = sp.bmat([[Binv, None], [None, Binv]], format="csr")
+
+        interior = np.where(dg.interior_mask[:n])[0]
+        idx = np.concatenate([interior, interior + n])
+        A_int = A[idx, :][:, idx]
+        B_int = B[idx, :][:, idx]
+
+        if sigma is None:
+            n_eff_est = lp01_neff_estimate(self.k0,
+                                           float(np.mean(g.core_radii)),
+                                           g.n_core, g.n_clad)
+            sigma = (self.k0 * n_eff_est) ** 2
+        k = min(n_modes_target + 12, A_int.shape[0] - 4)
+        beta_sq, evecs = scipy_eigsh_pencil(A_int, B_int, k=k, sigma=sigma,
+                                            tol=1e-7, maxiter=12000)
+        keep = beta_sq > 0
+        beta_sq, evecs = beta_sq[keep], evecs[:, keep]
+        betas = np.sqrt(beta_sq)
+        ni = len(interior)
+        hx = np.zeros((n, len(betas)))
+        hy = np.zeros((n, len(betas)))
+        hx[interior] = evecs[:ni]
+        hy[interior] = evecs[ni:]
+        # Hz from the div-free condition div H = 0: with H = (hx, hy,
+        # i hz~) e^{i beta z}, hz~ = (dx hx + dy hy) / beta, projected
+        # back to the P2 basis via one mass solve. Keeps the mode-dict
+        # schema backend-independent (the transverse pencil itself never
+        # carries Hz; the reference simply omitted it).
+        if len(betas):
+            from scipy.sparse.linalg import factorized
+
+            Ngx = csr(prim["u_ngx"])
+            Ngy = csr(prim["u_ngy"])
+            M = csr(prim["u_nn"])
+            Msolve = factorized(M.tocsc())
+            rhs = (Ngx @ hx + Ngy @ hy) / betas[None, :]
+            hz = np.column_stack([Msolve(rhs[:, i])
+                                  for i in range(rhs.shape[1])])
+        else:
+            hz = np.zeros((n, 0))
+        return betas, hx, hy, hz
 
     # -- two-grid spectral bootstrap (no reference analog) ---------------
     @classmethod

@@ -1,5 +1,5 @@
-"""The two workloads that ``chip_smoke.py`` drives and
-``profile_design.py`` measures, defined once.
+"""The workloads that ``chip_smoke.py`` drives and ``profile_design.py``
+measures, defined once.
 
 - Config 1 (BASELINE config 1, as ``bench.py`` runs it): a 7-core
   hexagonal lantern, r 1.5 um, pitch 8 um, n_core 1.535, air clad;
@@ -8,7 +8,8 @@
   N_MODES modes, fast mode (cheb_degree 200, cheb_passes 2,
   beta_passes 1).
 - The r5 dataset: the CLI at ``configs/r5_dataset.yaml`` on DATASET_N
-  of its samples with DATASET_CMT_SLICES CMT slices.
+  of its samples with DATASET_CMT_SLICES CMT slices; the scalar
+  pipeline (``--scalar``) on SCALAR_DATASET_N of them.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ BUCKET_ROUNDING = 1024
 R5_CONFIG = Path(__file__).resolve().parents[1] / "configs" / "r5_dataset.yaml"
 DATASET_N = 8                # of the 220 samples of configs/r5_dataset.yaml
 DATASET_CMT_SLICES = 5
+SCALAR_DATASET_N = 4         # of the same 220, through --scalar
 
 
 def config1_geom(wavelength_um: float):
@@ -55,3 +57,10 @@ def dataset_argv(out_dir) -> list:
     """The CLI arguments of the r5 dataset run into ``out_dir``."""
     return ["--config", str(R5_CONFIG), "--n", str(DATASET_N),
             "--out", str(out_dir), "--cmt-slices", str(DATASET_CMT_SLICES)]
+
+
+def scalar_dataset_argv(out_dir) -> list:
+    """The CLI arguments of the scalar r5 dataset run into ``out_dir``."""
+    return ["--config", str(R5_CONFIG), "--n", str(SCALAR_DATASET_N),
+            "--out", str(out_dir), "--cmt-slices", str(DATASET_CMT_SLICES),
+            "--scalar"]

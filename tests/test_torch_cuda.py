@@ -7,7 +7,8 @@ is installed:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Tolerance: <= 1e-5 of max|y| (f32 kernel vs f32 twin, two orderings of
-the same sums).
+the same sums); K6 decides eps_re exactly as its twin and holds eps_im
+to 1e-6 of max(1, max|eps_im|) (the kernel's exp / log against powf).
 """
 import threading
 
@@ -155,6 +156,193 @@ def test_cheb_step(dev, first, renorm):
     ref = trk.cheb_step_plain(W, V2, T0, c, h, renorm=renorm)
     assert _rel(ref, y) <= 1e-5
     assert _rel(V2, V1) <= 1e-5
+
+
+@pytest.mark.parametrize("renorm", [False, True])
+def test_cheb_step_single_component(dev, renorm):
+    """K4 on the scalar solver's (D, 1, 1, k) block: one design, one
+    component, the column norm over all rows."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    W, V, T0 = (torch.randn((5000, 1, 1, 22), generator=g, device=dev)
+                for _ in range(3))
+    c = torch.tensor([3.0], device=dev)
+    h = torch.tensor([40.0], device=dev)
+    V1, V2 = V.clone(), V.clone()
+    n0 = trk.cheb_step.launches
+    y = trk.cheb_step(W, V1, T0, c, h, renorm=renorm)
+    assert trk.cheb_step.launches == n0 + 1
+    ref = trk.cheb_step_plain(W, V2, T0, c, h, renorm=renorm)
+    assert _rel(ref, y) <= 1e-5
+    assert _rel(V2, V1) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the scalar path's kernels: K5 (stacked apply), K6 (permittivity), K7
+# (scalar blocks), K8 (spectrum bound)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def scalar_setup(setup, dev):
+    """The scalar pencil (PML on) and the (E, 18, 18) vectorial blocks on
+    the small 3-core mesh."""
+    ga = setup["ga"]
+    g = MCFGeometry(3, 8.0, 1.5, 1.535, 1.0, wavelength_um=1.55)
+    ea = ta.eps_arrays(g.eps_params(), dev)
+    A, Bm, diag = ta.assemble_scalar_system(ga, ea, g.k0)
+    prim, _, _ = ta.assemble_vector3_system(ga, ea)
+    A3 = ta.vector3_stacked_A(prim, np.float32(g.k0 * 1.45), np.float32(1.0))
+    return dict(g=g, ea=ea, A=A, B=Bm, diag=diag, A3=A3, M3=prim["u_nn"])
+
+
+@pytest.mark.parametrize("C,k", [(1, 1), (1, 7), (1, 22), (1, 300), (3, 22)])
+def test_apply_stacked_elem(setup, scalar_setup, dev, C, k):
+    """K5 against its twin, and the whole stacked apply (K5 + K2 per
+    component) against the twins' on the CPU."""
+    ga, gs = setup["ga"], setup["gs"]
+    D = ga.dof_valid.shape[0]
+    Abig = scalar_setup["A"] if C == 1 else scalar_setup["A3"]
+    mask = ga.dof_valid if C == 1 else ga.interior_mask
+    X = torch.randn((C * D, k), generator=setup["gen"], device=dev)
+    n0 = ck.apply_stacked_elem.launches
+    Ye = ck.apply_stacked_elem(X, mask, gs.elem_dofs, Abig, C)
+    assert ck.apply_stacked_elem.launches == n0 + 1
+    assert Ye.shape == (C, gs.elem_dofs.shape[0], 6, k)
+    ref = ck.apply_stacked_elem_plain(X, mask, gs.elem_dofs, Abig, C)
+    assert _rel(ref, Ye) <= 1e-5
+    y = tk._apply_stacked(Abig, gs, mask, 50.0, X, C)
+    ga_c = ta.GridArrays(*(t.cpu() for t in ga))
+    ref = tk._apply_stacked(Abig.cpu(), ta.gather_scatter(ga_c),
+                            mask.cpu(), 50.0, X.cpu(), C)
+    assert _rel(ref, y) <= 1e-5
+
+
+def test_apply_stacked_matches_fused_apply(setup, scalar_setup, dev):
+    """K5 + K2 on the assembled (E, 18, 18) blocks == K1 + K2, the
+    matrix-free A(beta) apply, on the same block (B = 1)."""
+    ga, gs = setup["ga"], setup["gs"]
+    g = scalar_setup["g"]
+    D = ga.dof_valid.shape[0]
+    qf, _ = ta.assemble_vector3_qf(ga, scalar_setup["ea"])
+    qs = tk.QFactorSweep(invJT=qf.invJT, w=qf.w, inv_eps=qf.inv_eps[None],
+                         gp=ga.grad_phys)
+    X = torch.randn((3 * D, 1, K), generator=setup["gen"], device=dev)
+    y = tk._apply_stacked(scalar_setup["A3"], gs, ga.interior_mask, 50.0,
+                          X[:, 0].contiguous(), 3)
+    ref = tk._stacked_from_fused(tk._apply_vector3_fused(
+        qs, gs, ga.interior_mask, torch.tensor([50.0], device=dev),
+        torch.tensor([g.k0 * 1.45], dtype=torch.float32, device=dev), 1.0,
+        tk._fused_from_stacked(X)))[:, 0]
+    assert _rel(ref, y) <= 1e-5
+
+
+@pytest.mark.parametrize("pml", [True, False])
+def test_eps_at_quadrature(setup, dev, pml):
+    ga = setup["ga"]
+    g = MCFGeometry(3, 8.0, 1.5, 1.535, 1.0, wavelength_um=1.55,
+                    use_complex_pml=pml)
+    ea = ta.eps_arrays(g.eps_params(), dev)
+    n0 = trk.eps_at_quadrature.launches
+    re, im = trk.eps_at_quadrature(ga.qp_xy, ea)
+    assert trk.eps_at_quadrature.launches == n0 + 1
+    rre, rim = trk.eps_at_quadrature_plain(ga.qp_xy, ea)
+    assert torch.equal(re, rre)
+    assert float((im - rim).abs().max()) <= 1e-6 * max(1.0, float(rim.max()))
+    assert bool(im.max() > 0) == pml
+    # the CPU twin decides every point the same way
+    ga_c = ta.GridArrays(*(t.cpu() for t in ga))
+    cre, _ = trk.eps_at_quadrature(ga_c.qp_xy,
+                                   ta.eps_arrays(g.eps_params(), "cpu"))
+    assert torch.equal(re.cpu(), cre)
+
+
+def test_scalar_blocks(setup, scalar_setup, dev):
+    ga, g = setup["ga"], scalar_setup["g"]
+    eps_re, _ = ta.eps_at_quadrature(ga, scalar_setup["ea"])
+    k2 = float(np.float32(g.k0) ** 2)
+    n0 = ck.scalar_blocks.launches
+    A, Bm = ck.scalar_blocks(ga.grad_phys, ga.qp_w, ga.shape_vals, eps_re, k2)
+    assert ck.scalar_blocks.launches == n0 + 1
+    rA, rB = ck.scalar_blocks_plain(ga.grad_phys, ga.qp_w, ga.shape_vals,
+                                    eps_re, k2)
+    assert _rel(rA, A) <= 1e-5 and _rel(rB, Bm) <= 1e-5
+    assert torch.equal(A, scalar_setup["A"])        # bitwise repeatable
+
+
+@pytest.mark.parametrize("C", [1, 3])
+def test_pencil_bounds(setup, scalar_setup, dev, C):
+    """K8 against its twin (1e-5 relative) and against the same bound in
+    f64 (a bound must not fall below it: 1e-4 relative slack for f32)."""
+    ga = setup["ga"]
+    Abig = scalar_setup["A"] if C == 1 else scalar_setup["A3"]
+    Bm = scalar_setup["B"] if C == 1 else scalar_setup["M3"]
+    Linv = torch.as_tensor(tk._LINV_REF, dtype=torch.float32, device=dev)
+    tr = float(np.trace(tk._B_REF))
+    n0 = ck.pencil_bounds.launches
+    b = ck.pencil_bounds(Abig, Bm, ga.elem_valid, Linv, tr, C)
+    assert ck.pencil_bounds.launches == n0 + 1
+    assert b.shape == () and b.device.type == "cuda"
+    ref = ck.pencil_bounds_plain(Abig, Bm, ga.elem_valid, Linv, tr, C)
+    assert abs(float(b) - float(ref)) <= 1e-5 * float(ref)
+    ref64 = ck.pencil_bounds_plain(Abig.double(), Bm.double(), ga.elem_valid,
+                                   Linv.double(), tr, C)
+    assert float(b) >= float(ref64) * (1.0 - 1e-4)
+    assert float(tk.pencil_bounds_elem(Abig, Bm, ga.elem_valid, C=C)[2]) \
+        == float(b)
+
+
+def test_scalar_wrappers_refuse_bad_input(setup, scalar_setup, dev):
+    ga, gs = setup["ga"], setup["gs"]
+    D = ga.dof_valid.shape[0]
+    X = torch.zeros((D, 4), device=dev)
+    with pytest.raises(TypeError):
+        ck.apply_stacked_elem(X.double(), ga.dof_valid, gs.elem_dofs,
+                              scalar_setup["A"], 1)
+    with pytest.raises(ValueError):             # C = 2 has no kernel
+        ck.apply_stacked_elem(X, ga.dof_valid, gs.elem_dofs,
+                              scalar_setup["A"], 2)
+    with pytest.raises(ValueError):             # (E, 18, 18) given as C = 1
+        ck.apply_stacked_elem(X, ga.dof_valid, gs.elem_dofs,
+                              scalar_setup["A3"], 1)
+    with pytest.raises(ValueError):
+        ck.pencil_bounds(scalar_setup["A"], scalar_setup["B"],
+                         ga.elem_valid[:-1].contiguous(),
+                         torch.eye(6, device=dev), 1.0, 1)
+    with pytest.raises(ValueError):             # f64 permittivity scalars
+        trk.eps_at_quadrature(ga.qp_xy, ta.eps_arrays(
+            scalar_setup["g"].eps_params(), dev, torch.float64))
+
+
+def test_scalar_solve_on_card_matches_cpu(dev):
+    """ScalarHelmholtzSolver.solve on the card (K2-K8) against the same
+    solve through the twins on the CPU from the same start block: n_eff
+    within 1e-6 after the host polish; every kernel of the path launches."""
+    from pl_fem_tpu_torch.config import SolverConfig
+    from pl_fem_tpu_torch.solvers import ScalarHelmholtzSolver
+
+    geom = MCFGeometry(1, 8.0, 1.5, 1.53, 1.0, wavelength_um=1.55,
+                       use_complex_pml=False)
+    mesh = dict(mesh_min_points=600, mesh_target_points=2500,
+                mesh=MeshConfig(bucket_rounding=256))
+    dg = export_device_grid(MeshGenerator.generate(
+        geom, 0.4, SimulationConfig(**mesh)), 256)
+    skw = dict(cheb_degree=150, cheb_passes=2)
+    k = 8 + SolverConfig().extra_vectors
+    X0 = np.random.default_rng(42).standard_normal(
+        (dg.n_dofs_padded, k)).astype(np.float32)
+    wrappers = (ck.accumulate, ck.mass_apply, trk.cheb_step,
+                ck.apply_stacked_elem, trk.eps_at_quadrature,
+                ck.scalar_blocks, ck.pencil_bounds)
+    before = [f.launches for f in wrappers]
+    on_card = ScalarHelmholtzSolver(geom, SimulationConfig(
+        **mesh, solver=SolverConfig(device="cuda", **skw))).solve(dg, 8,
+                                                                  X0=X0)
+    assert all(f.launches > n for f, n in zip(wrappers, before))
+    on_cpu = ScalarHelmholtzSolver(geom, SimulationConfig(
+        **mesh, solver=SolverConfig(device="cpu", **skw))).solve(dg, 8,
+                                                                 X0=X0)
+    assert len(on_card) >= 8 and len(on_cpu) >= 8
+    for a, b in zip(on_card[:8], on_cpu[:8]):
+        assert abs(a["n_eff"] - b["n_eff"]) <= 1e-6 * b["n_eff"]
 
 
 def test_filter_on_card_matches_cpu(setup, dev):

@@ -222,10 +222,24 @@ def test_provenance_matches_jax():
 
 
 def test_scalar_path_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        tgen.DatasetGenerator(use_vectorial=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        cli.main(["--scalar", "--n", "1", "--out", str(tmp_path)])
+    """The scalar path is ported: it raises only for what every entry
+    point raises for, a CUDA device asked for (the default) and absent.
+    The dataset engine records that per sample and carries on."""
+    gen, args = cli.generator(["--scalar", "--n", "1", "--out",
+                               str(tmp_path)])
+    assert args.scalar and gen.use_vectorial is False
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from pl_fem_tpu_torch.models import MCFGeometry
+    from pl_fem_tpu_torch.solvers import ScalarHelmholtzSolver
+
+    geom = MCFGeometry(1, 8.0, 1.5, 1.53, 1.0, wavelength_um=1.55)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ScalarHelmholtzSolver(geom, gen.config).solve(None, 4)
+    sample = gen.sampler.generate_stratified_samples(1)[0]
+    rec = gen.simulate_sample(sample)
+    assert not rec.success and "CUDA" in rec.error_msg
+    assert rec.solver_mode == "scalar_cascade"
 
 
 def test_config_file_without_yaml(tmp_path, monkeypatch):

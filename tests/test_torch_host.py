@@ -91,11 +91,14 @@ def test_unknown_backend_raises(grids):
     from pl_fem_tpu_torch.solvers import TrueVectorialMaxwellSolver
 
     _, _, g, dg = grids
-    for backend in ("tpu", "hybrid"):
+    for backend in ("tpu", "arpack"):
         cfg = SimulationConfig(solver=SolverConfig(backend=backend,
                                                    device="cpu"))
         with pytest.raises(ValueError, match="backend"):
             TrueVectorialMaxwellSolver.solve_sweep([g], dg, 4, cfg)
+        with pytest.raises(ValueError, match="backend"):
+            TrueVectorialMaxwellSolver(g, config=cfg) \
+                .solve_vectorial_modes(dg, 4)
 
 
 _BLOCK_JAX = """
@@ -111,6 +114,8 @@ class _Block:
 sys.meta_path.insert(0, _Block())
 import pl_fem_tpu_torch
 import pl_fem_tpu_torch.solvers.vectorial
+import pl_fem_tpu_torch.solvers.scalar
+import pl_fem_tpu_torch.ops.eig
 import pl_fem_tpu_torch.ops.kernels
 import pl_fem_tpu_torch.ops.triton_kernels
 import pl_fem_tpu_torch.ops.cuda_kernels
@@ -123,6 +128,8 @@ bad = sorted(m for m in sys.modules
 assert not bad, bad
 assert pl_fem_tpu_torch.TrueVectorialMaxwellSolver.__name__ == \\
     "TrueVectorialMaxwellSolver"
+assert pl_fem_tpu_torch.ScalarHelmholtzSolver.__name__ == \\
+    "ScalarHelmholtzSolver"
 print("ok")
 """
 
