@@ -18,22 +18,30 @@ In order:
    times both with CUDA events beside the kernel's bound (the bytes the
    function must move at 3.35 TB/s, or its f32 operations at 67
    TFLOP/s) and, where one PyTorch call computes the same function, that
-   call (a cuSPARSE SpMM for K2 without epilogue and for K3); K2 also
-   at L = 1 on the mass diagonal's element terms, as
+   call (a cuSPARSE SpMM for K2 without epilogue and for K3). K1, the
+   whole A(beta) apply, must take one launch and repeat bit for bit; its
+   plan's rows per block and element evaluations per element are
+   printed, and beside it the two passes that remain of the older
+   three-pass apply (the mask and K2 with its epilogue). K2 also at
+   L = 1 on the mass diagonal's element terms, as
    ``assemble_vector3_qf`` feeds it; K3 in plain mode and as B^-1 of
    degree 1 and 4, which must launch it exactly `degree` times and
-   repeat bit for bit. The scalar path's kernels on the same mesh at
-   k = 22: K5 (stacked apply) at C = 1 on the scalar pencil's blocks
-   and at C = 3 on the (E, 18, 18) vectorial blocks, there also against
-   K1 + K2; K6 (permittivity: eps_re equal, eps_im to 1e-6); K7 (scalar
-   blocks); K8 (spectrum bound, C = 1 and 3, also >= its f64 value less
-   1e-4 relative); K4 on a (D, 1, 1, k) block; K2 and K3 at L = k;
+   repeat bit for bit; K4's renorm step (T2 unscaled and its scale),
+   plain step and the step after a renorm, and an 18-step recurrence
+   with two deferred renorms against the twin's. The scalar path's
+   kernels on the same mesh at k = 22: K5 (stacked apply) at C = 1 on
+   the scalar pencil's blocks and at C = 3 on the (E, 18, 18) vectorial
+   blocks, there also against K1; K6 (permittivity: eps_re equal,
+   eps_im to 1e-6); K7 (scalar blocks); K8 (spectrum bound, C = 1 and
+   3, also >= its f64 value less 1e-4 relative); K4 on a (D, 1, 1, k)
+   block; K2 and K3 at L = k;
 4. runs the main path twice, warm-up then timed:
    ``TrueVectorialMaxwellSolver.solve_sweep`` over 8 wavelengths
    1.50-1.64 um in fast mode (cheb_degree 200, cheb_passes 2,
    beta_passes 1, bootstrap on). Every design must return guided modes
    with n_clad < n_eff < n_core, and every kernel's launch count must
-   rise during the timed run;
+   rise during the timed run: K1 exactly once per A(beta) apply (per
+   K4 step and per Rayleigh-Ritz pass), K2 only on the mass diagonal;
 5. solves a single-core step fiber (r 1.5 um, n_core 1.53, air clad)
    through the same path and holds HE11's n_eff to the exact vector
    dispersion (ops/analytic.vector_modes) within 1e-3 relative, the
@@ -46,7 +54,8 @@ In order:
    removed afterwards. It checks the records (8 lines,
    every validated sample solved in a bucket sweep, at least one
    success with finite mux/demux losses, a CMT IL and a power
-   conservation in (0, 1.05]), that K1-K4 launched during the run, and
+   conservation in (0, 1.05]), that K1-K4 launched during the run (K1
+   once per apply, K2 only on the mass diagonal), and
    that a second run on the same directory solves nothing; then it holds
    each kernel against its twin at the largest (B, k) the engine used,
    on a mesh at the engine's settings (K5-K8 too, at the scalar
@@ -70,12 +79,14 @@ failure raises and the script exits non-zero.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -194,6 +205,52 @@ def _scatter_csr(gs, E):
     return S.coalesce().to_sparse_csr()
 
 
+@contextlib.contextmanager
+def _watch_sweep():
+    """While active, count the vectorial Rayleigh-Ritz passes
+    (``kernels.cheb_sweep_rr_impl``, one A(beta) apply each) and record
+    the lane count of every K2 launch made through ``kernels``: the
+    port's own functions, wrapped (two sweep threads may call them)."""
+    from pl_fem_tpu_torch.ops import kernels as tkn
+
+    seen = {"rr_passes": 0, "k2_lanes": set()}
+    lock = threading.Lock()
+    rr, acc = tkn.cheb_sweep_rr_impl, tkn.accumulate
+
+    def rr_counted(*args, **kw):
+        with lock:
+            seen["rr_passes"] += 1
+        return rr(*args, **kw)
+
+    def acc_seen(Ye, *args, **kw):
+        with lock:
+            seen["k2_lanes"].add(Ye.shape[-1])
+        return acc(Ye, *args, **kw)
+
+    tkn.cheb_sweep_rr_impl, tkn.accumulate = rr_counted, acc_seen
+    try:
+        yield seen
+    finally:
+        tkn.cheb_sweep_rr_impl, tkn.accumulate = rr, acc
+
+
+def _check_apply_launches(what, launches, seen):
+    """K1 launches once per A(beta) apply: one per filter step (each
+    followed by one K4 step) and one per Rayleigh-Ritz pass; K2 only
+    sums the mass diagonal (L = 1), never per filter step."""
+    n1, n4, rr = (launches["apply_vector3"], launches["cheb_step"],
+                  seen["rr_passes"])
+    print(f"{what}: K1 launches {n1} = K4 steps {n4} + Rayleigh-Ritz passes "
+          f"{rr}; K2 launches {launches['accumulate']} at lane counts "
+          f"{sorted(seen['k2_lanes'])}", flush=True)
+    if n1 != n4 + rr:
+        raise AssertionError(f"{what}: K1 did not launch once per A(beta) "
+                             f"apply")
+    if seen["k2_lanes"] - {1}:
+        raise AssertionError(f"{what}: K2 launched on lane blocks (the "
+                             f"filter's), not only on the mass diagonal")
+
+
 def _kernel_checks(dg, geoms, k, dev):
     """Each kernel against its plain twin on ``dg`` with B = len(geoms)
     designs and k columns; returns {name: row} with each row's error,
@@ -203,7 +260,6 @@ def _kernel_checks(dg, geoms, k, dev):
 
     from pl_fem_tpu_torch.ops import cuda_kernels as ck
     from pl_fem_tpu_torch.ops import kernels as tkn
-    from pl_fem_tpu_torch.ops import triton_kernels as tk
     from pl_fem_tpu_torch.ops.assembly import (assemble_vector3_qf,
                                                eps_arrays, gather_scatter,
                                                grid_to_device)
@@ -231,9 +287,11 @@ def _kernel_checks(dg, geoms, k, dev):
     betas = torch.tensor([g.k0 * 1.49 for g in geoms], device=dev)
     N = shape_table(dev)
     park = torch.full((L,), 50.0, device=dev)
-    Ye = ck.apply_vector3_elem(Xm, gs.elem_dofs, qs.gp, qs.w, qs.inv_eps,
-                               betas, 1.0, N, k)
-    elem = (gs.elem_dofs, qs.gp, qs.w, qs.inv_eps, betas, 1.0, N, k)
+    parks = torch.full((B,), 50.0, device=dev)
+    apply_args = (gs, qs.gp, qs.w, qs.inv_eps, betas, 1.0, N, mask, parks)
+    # the twin's element results feed K2's rows
+    Ye = ck.apply_vector3_elem_plain(Xm, gs.elem_dofs, qs.gp, qs.w,
+                                     qs.inv_eps, betas, 1.0, N, k)
     tables = (gs.idx_v, gs.valid_v, gs.idx_e, gs.valid_e)
     W = torch.randn((D, B, 3, k), generator=gen, device=dev)
     T1 = torch.randn((D, B, 3, k), generator=gen, device=dev)
@@ -250,17 +308,39 @@ def _kernel_checks(dg, geoms, k, dev):
     mtab = tab + 4 * E * 6 + 4 * E * Q + 4 * Q * 6 + 4 * D + 4 * D
     print(f"kernel checks at D={D} E={E} B={B} k={k} L={L}:", flush=True)
     res = {}
-    res["apply_vector3_elem"] = _compare(
-        "K1 apply_vector3_elem",
-        lambda: ck.apply_vector3_elem(Xm, *elem),
-        lambda: ck.apply_vector3_elem_plain(Xm, *elem),
-        (blk + 4 * (E * 6 + E * Q * 13 + B * E * Q + B + Q * 6)
-         + 4 * E * 6 * L, K1_FLOPS_PER_POINT * E * Q * B * k))
+    # K1: X in, Y out, the element tables (dofs, gradients, weights,
+    # 1/eps per design), betas, shape table, mask, parks
+    n0 = ck.apply_vector3.launches
+    y = ck.apply_vector3(X, *apply_args)
+    if ck.apply_vector3.launches != n0 + 1:
+        raise AssertionError("K1 took more than one launch for one apply")
+    if not torch.equal(y, ck.apply_vector3(X, *apply_args)):
+        raise AssertionError("K1 is not bitwise repeatable")
+    plan = gs.apply_plan
+    k1 = _compare(
+        "K1 apply_vector3 (mask, element math, accumulate, park)",
+        lambda: ck.apply_vector3(X, *apply_args),
+        lambda: ck.apply_vector3_plain(X, *apply_args),
+        (2 * blk + 4 * (E * 6 + E * Q * 13 + B * E * Q + B + Q * 6 + D + B),
+         K1_FLOPS_PER_POINT * E * Q * B * k))
+    k1.update(rows_per_block=plan.rows, recompute=plan.recompute)
+    res["apply_vector3"] = k1
+    print(f"  K1 plan: {plan.rows} rows per block, {plan.recompute:.3f} "
+          f"element evaluations per element, at most {plan.max_entries} "
+          f"entries per block", flush=True)
     res["accumulate"] = _compare(
         "K2 accumulate (epilogue)",
         lambda: ck.accumulate(Ye, *tables, X, mask, park),
         lambda: ck.accumulate_plain(Ye, *tables, X, mask, park),
         (4 * E * 6 * L + tab + 2 * blk + 4 * D + 4 * L, 0))
+    # the older apply was three passes: the mask, an element-only kernel
+    # (no longer built) and K2 with its epilogue; the two that remain
+    mask_ms = _event_ms(lambda: X * mask[:, None])
+    k1["before"] = {"mask_pass_ms": mask_ms,
+                    "accumulate_epilogue_ms": res["accumulate"]["ms"]}
+    print(f"  K1 before, the older three-pass apply: mask pass "
+          f"{mask_ms:.3f} ms + the element pass (not built any more) + K2 "
+          f"with epilogue {res['accumulate']['ms']:.3f} ms", flush=True)
     S = _scatter_csr(gs, E)
     Yflat = Ye.view(6 * E, L)
     bare = _compare(
@@ -314,18 +394,71 @@ def _kernel_checks(dg, geoms, k, dev):
             lambda: tkn._apply_binv_fused(*args),
             lambda: tkn._apply_binv_fused_plain(*args),
             (2 * blk + mtab, 0))
-    res["cheb_step"] = _compare(
-        "K4 cheb_step (renorm step)",
-        lambda: tk.cheb_step(W, T1.clone(), T0, c, h, renorm=True),
-        lambda: tk.cheb_step_plain(W, T1.clone(), T0, c, h, renorm=True),
-        (5 * blk + 8 * B, 0))
-    # the plain step (no renorm) is the one run 7 of every 8 steps
-    res["cheb_step"]["plain_step"] = _compare(
-        "K4 cheb_step (plain step)",
-        lambda: tk.cheb_step(W, T1, T0, c, h),
-        lambda: tk.cheb_step_plain(W, T1, T0, c, h),
-        (4 * blk + 8 * B, 0))
+    res["cheb_step"] = _cheb_checks(W, T1, T0, c, h, gen, "")
     return res
+
+
+def _cheb_checks(W, T1, T0, c, h, gen, tag):
+    """K4 against its twin on (D, B, C, k) blocks: the renorm step (T2
+    and its scale s), the plain step, the step after a renorm (both
+    pending scales), and a short recurrence with two deferred renorms;
+    returns the renorm step's row with the others in it."""
+    import torch
+
+    from pl_fem_tpu_torch.ops import kernels as tkn
+    from pl_fem_tpu_torch.ops import triton_kernels as tk
+
+    D, B, C, k = W.shape
+    blk = 4 * W.numel()
+    # a step reads W, T1, T0 and writes T2; c, h, and the (B, k) scales
+    row = _compare(
+        f"K4 cheb_step (renorm step{tag}: T2 unscaled and its scale)",
+        lambda: tk.cheb_step(W, T1, T0, c, h, renorm=True)[0],
+        lambda: tk.cheb_step_plain(W, T1, T0, c, h, renorm=True)[0],
+        (4 * blk + 8 * B + 4 * B * k, 0))
+    s = tk.cheb_step(W, T1, T0, c, h, renorm=True)[1]
+    ref = tk.cheb_step_plain(W, T1, T0, c, h, renorm=True)[1]
+    err = float((s - ref).abs().max())
+    if not err <= KERNEL_RTOL * float(ref.abs().max()):
+        raise AssertionError(f"K4: max|s - twin| = {err:.3e}")
+    row["s_max_abs_err"] = err
+    # the plain step (no renorm, no pending scale): 6 of every 8 steps
+    row["plain_step"] = _compare(
+        f"K4 cheb_step (plain step{tag})",
+        lambda: tk.cheb_step(W, T1, T0, c, h)[0],
+        lambda: tk.cheb_step_plain(W, T1, T0, c, h)[0],
+        (4 * blk + 8 * B, 0))
+    sv = torch.rand((B, k), generator=gen, device=W.device) + 0.5
+    row["scaled_step"] = _compare(
+        f"K4 cheb_step (the step after a renorm{tag})",
+        lambda: tk.cheb_step(W, T1, T0, c, h, scale=sv, scale_t0=sv)[0],
+        lambda: tk.cheb_step_plain(W, T1, T0, c, h, scale=sv,
+                                   scale_t0=sv)[0],
+        (4 * blk + 8 * B + 4 * B * k, 0))
+    # T1 = T(T0), then 17 steps with renorms at the 8th and 16th, for the
+    # fixed linear W(V) = A * V: through the kernel, then the twin
+    A = W + 3.0
+
+    def recurrence():
+        T, _ = tkn.cheb_step(A * T0, T0, None, c, h)
+        return tkn._sweep_iterate(lambda V: A * V, c, h, T0, T, 17, 8)
+
+    y = recurrence()
+    kernel_step = tkn.cheb_step
+    tkn.cheb_step = tk.cheb_step_plain
+    try:
+        ref = recurrence()
+    finally:
+        tkn.cheb_step = kernel_step
+    err = float((y - ref).abs().max())
+    scale = float(ref.abs().max())
+    print(f"  K4 18-step recurrence, deferred renorms{tag}: max_abs_err="
+          f"{err:.3e} (max|y|={scale:.3e}, limit {KERNEL_RTOL:g} of max|y|)",
+          flush=True)
+    if not err <= KERNEL_RTOL * scale:
+        raise AssertionError("K4's recurrence disagrees with the twin's")
+    row["recurrence_max_abs_err"] = err
+    return row
 
 
 def _scalar_kernel_checks(dg, geom, k, dev):
@@ -472,7 +605,7 @@ def _scalar_kernel_checks(dg, geom, k, dev):
                 tkn._fused_from_stacked(X[:, None, :])))[:, 0]
             err = float((y - ref).abs().max())
             scale = float(ref.abs().max())
-            print(f"  K5 + K2 (C = 3) vs K1 + K2: max_abs_err={err:.3e} "
+            print(f"  K5 + K2 (C = 3) vs K1: max_abs_err={err:.3e} "
                   f"(max|y|={scale:.3e}, limit {KERNEL_RTOL:g} of max|y|)",
                   flush=True)
             if not err <= KERNEL_RTOL * scale:
@@ -520,16 +653,7 @@ def _scalar_kernel_checks(dg, geom, k, dev):
                  for _ in range(3))
     c = torch.tensor([120.0], device=dev)
     h = torch.tensor([1100.0], device=dev)
-    res["cheb_step"] = _compare(
-        "K4 cheb_step (renorm step, C = 1)",
-        lambda: tk.cheb_step(W, T1.clone(), T0, c, h, renorm=True),
-        lambda: tk.cheb_step_plain(W, T1.clone(), T0, c, h, renorm=True),
-        (5 * blk + 8, 0))
-    res["cheb_step"]["plain_step"] = _compare(
-        "K4 cheb_step (plain step, C = 1)",
-        lambda: tk.cheb_step(W, T1, T0, c, h),
-        lambda: tk.cheb_step_plain(W, T1, T0, c, h),
-        (4 * blk + 8, 0))
+    res["cheb_step"] = _cheb_checks(W, T1, T0, c, h, gen, ", C = 1")
     return res
 
 
@@ -577,7 +701,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 4. the main path: warm-up, then timed --------------------------
-    wrappers = {"apply_vector3_elem": ck.apply_vector3_elem,
+    wrappers = {"apply_vector3": ck.apply_vector3,
                 "accumulate": ck.accumulate,
                 "mass_apply": ck.mass_apply,
                 "cheb_step": tk.cheb_step,
@@ -588,7 +712,7 @@ def main() -> int:
     # the vectorial paths run K1-K4, K6 and K8; the scalar paths K2-K8
     on_vector = [n for n in wrappers
                  if n not in ("apply_stacked_elem", "scalar_blocks")]
-    on_scalar = [n for n in wrappers if n != "apply_vector3_elem"]
+    on_scalar = [n for n in wrappers if n != "apply_vector3"]
 
     def reset_counts():
         for fn in wrappers.values():
@@ -605,8 +729,9 @@ def main() -> int:
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    sweep = Solver.solve_sweep(geoms, dg, wl.N_MODES, cfg)
-    torch.cuda.synchronize()
+    with _watch_sweep() as seen:
+        sweep = Solver.solve_sweep(geoms, dg, wl.N_MODES, cfg)
+        torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_counts()
     phases = {p: round(s, 3) for p, s in Solver.last_sweep_times.items()}
@@ -633,6 +758,7 @@ def main() -> int:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by the "
                                  f"main path")
+    _check_apply_launches("the timed sweep", launches, seen)
 
     # -- 5. single-core step fiber against the exact dispersion ---------
     fiber = MCFGeometry(1, 8.0, 1.5, 1.53, 1.0, wavelength_um=1.55,
@@ -661,8 +787,9 @@ def main() -> int:
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    gen, records = cli.run(argv)
-    torch.cuda.synchronize()
+    with _watch_sweep() as seen:
+        gen, records = cli.run(argv)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
     lines = (out_dir / "records.jsonl").read_text().splitlines()
@@ -695,6 +822,7 @@ def main() -> int:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by the "
                                  f"dataset engine")
+    _check_apply_launches("the dataset run", launches, seen)
     good = [r for r in records if r.success and _finite(
         r.IL_phys_mux_dB, r.MDL_phys_mux_dB, r.PDL_mux_dB,
         r.crosstalk_mux_dB, r.IL_phys_demux_dB, r.MDL_phys_demux_dB,
@@ -758,7 +886,7 @@ def main() -> int:
         if launches_scalar[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by the "
                                  f"scalar solve")
-    if launches_scalar["apply_vector3_elem"]:
+    if launches_scalar["apply_vector3"]:
         raise AssertionError("the scalar solve launched K1")
     hcfg = dataclasses.replace(cfg, solver=dataclasses.replace(
         cfg.solver, backend="hybrid"))
@@ -871,8 +999,8 @@ def main() -> int:
 
     src = "pl_fem_tpu_torch/ops/"
     meta = {
-        "apply_vector3_elem": ("cuda", src + "csrc/apply_vector3.cu",
-                               "pl_fem_tpu/ops/kernels.py:453"),
+        "apply_vector3": ("cuda", src + "csrc/apply_vector3.cu",
+                          "pl_fem_tpu/ops/kernels.py:453"),
         "accumulate": ("cuda", src + "csrc/accumulate.cu",
                        "pl_fem_tpu/ops/kernels.py:426"),
         "mass_apply": ("cuda", src + "csrc/mass_apply.cu",

@@ -14,6 +14,7 @@ function j of element e; global A[I, J] = sum_e blocks[e, i, j] over the
 """
 from __future__ import annotations
 
+import threading
 from typing import Dict, NamedTuple
 
 import numpy as np
@@ -106,6 +107,7 @@ class EpsArrays(NamedTuple):
 
 
 MASS_ROWS = 32        # DOF rows per block of the mass kernel (kRows)
+APPLY_ROWS = 256      # DOF rows per block of the A(beta) apply (at most)
 
 
 class MassPlan(NamedTuple):
@@ -126,7 +128,32 @@ class MassPlan(NamedTuple):
     max_entries: int         # the most entries one block holds
 
 
+class ApplyPlan(NamedTuple):
+    """The A(beta) apply kernel's per-grid plan (``apply_plan``).
+
+    Block b owns the rows ``order[b*R:(b+1)*R]`` and their transpose-
+    table entries, numbered per block in row order and, within a row, in
+    table order (``row_ptr``). It evaluates every element with an entry
+    among them (its element halo, ``elems``) and keeps only the entries
+    it owns: node i of element slot s is the block's entry ``dst[b, s,
+    i]``, or -1 where dof(e, i) is another block's row. Elements on
+    block borders are evaluated by every block they touch:
+    ``recompute`` element evaluations per element.
+    """
+
+    rows: int                # R, rows per block
+    order: torch.Tensor      # (D,) int32 Morton walk of the DOF rows
+    row_ptr: torch.Tensor    # (NB * R + 1,) int32 entry offsets per position
+    elems: torch.Tensor      # (NB, HE) int32 the block's elements, -1 pad
+    n_elems: torch.Tensor    # (NB,) int32
+    dst: torch.Tensor        # (NB, HE, 6) int16 block entry of node i, or -1
+    max_entries: int         # the most entries one block holds
+    recompute: float         # element evaluations per element
+
+
 _PLANS = WeakTensorKeyDictionary()
+_APPLY_PLANS = WeakTensorKeyDictionary()
+_PLAN_LOCK = threading.Lock()      # two sweep threads build plans at once
 
 
 def _spread_bits(v):
@@ -154,26 +181,22 @@ def dof_row_order(dof_coords: torch.Tensor) -> torch.Tensor:
     return torch.sort(code, stable=True).indices.to(torch.int32)
 
 
-def mass_plan(ga: GridArrays) -> MassPlan:
-    """The mass kernel's plan for the grid of ``ga``, built once per
-    device grid (cached on its ``dof_coords`` tensor).
+def _row_blocks(ga: GridArrays, R: int):
+    """The rows of ``dof_row_order`` in blocks of R and their entries.
 
-    Rows go in ``dof_row_order`` blocks of MASS_ROWS, so a block's halo
-    is a compact patch of the mesh: about 2.6 rows per owned row on the
-    r5 dataset mesh, against the 17.8 row gathers the rows make. Inside
-    a block the rows are sorted by entry count.
+    Returns (order (D,) int32, ent (NB * R, W) int64, row_ptr
+    (NB * R + 1,) int64): ent holds each row position's transpose-table
+    entries (flat e * 6 + i), valid ones first in table order and -1
+    after, the last block padded with empty rows. Inside a block the
+    rows are sorted by entry count, most first (stable): rows summed side
+    by side then carry similar work.
     """
-    plan = _PLANS.get(ga.dof_coords)
-    if plan is not None:
-        return plan
     dev = ga.elem_dofs.device
     i64 = torch.int64
     D = ga.dof_coords.shape[0]
     split, Wv = ga.dof_gather_v.shape
     W = max(Wv, 2)
-    R = MASS_ROWS
     NB = (D + R - 1) // R
-    # each row's entries, valid ones first in table order, -1 after
     ent = torch.full((D, W), -1, dtype=i64, device=dev)
     ent[:split, :Wv] = torch.where(ga.dof_gather_valid_v,
                                    ga.dof_gather_v.to(i64), -1)
@@ -184,40 +207,126 @@ def mass_plan(ga: GridArrays) -> MassPlan:
     order = dof_row_order(ga.dof_coords).to(i64)
     ent = torch.cat([ent[order],
                      torch.full((NB * R - D, W), -1, dtype=i64, device=dev)])
-    # within each block, rows with more entries first (stable, so the
-    # padding rows stay last): the rows a warp sums side by side then
-    # carry similar work
     blk = torch.arange(NB * R, device=dev) // R
     within = torch.argsort(blk * (W + 1) + W - (ent >= 0).sum(dim=1),
                            stable=True)
     ent = ent[within]
     order = order[within[:D]].to(torch.int32)
-    valid = ent >= 0
     row_ptr = torch.zeros(NB * R + 1, dtype=i64, device=dev)
-    row_ptr[1:] = torch.cumsum(valid.sum(dim=1), 0)
-    # the DOFs every entry gathers, per block: sorted, deduplicated into
-    # the halo, and each mapped to its halo slot
-    dofs = ga.elem_dofs.to(i64)[torch.clamp(ent, min=0) // 6]
-    dofs = torch.where(valid[..., None], dofs, -1).reshape(NB, R * W * 6)
-    srt, perm = torch.sort(dofs, dim=1, stable=True)
+    row_ptr[1:] = torch.cumsum((ent >= 0).sum(dim=1), 0)
+    return order, ent, row_ptr
+
+
+def _dedupe_rows(vals):
+    """Per row of ``vals`` (NB, n) int64 with -1 for none: the sorted
+    distinct values (NB, M) padded with -1, their counts (NB,), and each
+    entry's slot among them (NB, n; arbitrary where the entry is -1)."""
+    NB = vals.shape[0]
+    srt, perm = torch.sort(vals, dim=1, stable=True)
     new = srt >= 0
     new[:, 1:] &= srt[:, 1:] != srt[:, :-1]
-    slot = torch.cumsum(new.to(i64), dim=1) - 1
-    n_halo = new.sum(dim=1)
-    H = max(int(n_halo.max()), 1)
-    halo = torch.full((NB, H + 1), -1, dtype=i64, device=dev)
-    halo.scatter_(1, torch.where(new, slot, H), torch.where(new, srt, -1))
-    loc = torch.empty_like(dofs).scatter_(1, perm, slot)
+    slot = torch.cumsum(new.to(torch.int64), dim=1) - 1
+    count = new.sum(dim=1)
+    M = max(int(count.max()), 1)
+    uniq = torch.full((NB, M + 1), -1, dtype=torch.int64, device=vals.device)
+    uniq.scatter_(1, torch.where(new, slot, M), torch.where(new, srt, -1))
+    return uniq[:, :M], count, torch.empty_like(vals).scatter_(1, perm, slot)
+
+
+def mass_plan(ga: GridArrays) -> MassPlan:
+    """The mass kernel's plan for the grid of ``ga``, built once per
+    device grid (cached on its ``dof_coords`` tensor).
+
+    Rows go in ``dof_row_order`` blocks of MASS_ROWS, so a block's halo
+    is a compact patch of the mesh: about 2.6 rows per owned row on the
+    r5 dataset mesh, against the 17.8 row gathers the rows make. Inside
+    a block the rows are sorted by entry count.
+    """
+    with _PLAN_LOCK:
+        plan = _PLANS.get(ga.dof_coords)
+        if plan is None:
+            plan = _PLANS[ga.dof_coords] = _mass_plan(ga)
+        return plan
+
+
+def _mass_plan(ga: GridArrays) -> MassPlan:
+    R = MASS_ROWS
+    order, ent, row_ptr = _row_blocks(ga, R)
+    NB, W = ent.shape[0] // R, ent.shape[1]
+    valid = ent >= 0
+    # the DOFs every entry gathers, per block: sorted, deduplicated into
+    # the halo, and each mapped to its halo slot
+    dofs = ga.elem_dofs.to(torch.int64)[torch.clamp(ent, min=0) // 6]
+    dofs = torch.where(valid[..., None], dofs, -1).reshape(NB, R * W * 6)
+    halo, n_halo, loc = _dedupe_rows(dofs)
     loc = loc.reshape(NB * R, W, 6)[valid]
     per_block = row_ptr[R::R] - row_ptr[:-1:R]
-    plan = MassPlan(order=order, halo=halo[:, :H].to(torch.int32).contiguous(),
+    return MassPlan(order=order, halo=halo.to(torch.int32).contiguous(),
                     n_halo=n_halo.to(torch.int32),
                     row_ptr=row_ptr.to(torch.int32),
                     ent=ent[valid].to(torch.int32),
                     loc=loc.to(torch.int16).contiguous(),
                     max_entries=max(int(per_block.max()), 1))
-    _PLANS[ga.dof_coords] = plan
-    return plan
+
+
+APPLY_SHARED_LIMIT = 226 * 1024   # of a block's 227 KB, less static use
+
+
+def apply_shared_bytes(R: int, HE: int, max_entries: int) -> int:
+    """Dynamic shared memory of one block of the apply kernel (the count
+    of ``shared_bytes`` in csrc/apply_vector3.cu): the entries' and the
+    owned rows' lanes of a 16-pair chunk, the owned rows' masks, entry
+    offsets and ids, and each element's id, DOFs, masks and entry
+    slots."""
+    return (4 * 48 * (max_entries + R) + 4 * R + 4 * (2 * R + 1)
+            + 4 * 7 * HE + 4 * 6 * HE + 2 * 6 * HE)
+
+
+def apply_plan(ga: GridArrays) -> ApplyPlan:
+    """The A(beta) apply kernel's plan for the grid of ``ga``, built once
+    per device grid (cached on its ``dof_coords`` tensor).
+
+    Rows go in ``dof_row_order`` blocks of APPLY_ROWS, halved until a
+    block's shared memory (``apply_shared_bytes``) fits. Larger blocks
+    recompute fewer border elements: on the config-1 mesh about 1.35
+    evaluations per element at 256 rows, 1.5 at 128.
+    """
+    with _PLAN_LOCK:
+        plan = _APPLY_PLANS.get(ga.dof_coords)
+        if plan is None:
+            R = APPLY_ROWS
+            plan = _apply_plan(ga, R)
+            while R > 8 and apply_shared_bytes(
+                    R, plan.elems.shape[1],
+                    plan.max_entries) > APPLY_SHARED_LIMIT:
+                R //= 2
+                plan = _apply_plan(ga, R)
+            _APPLY_PLANS[ga.dof_coords] = plan
+        return plan
+
+
+def _apply_plan(ga: GridArrays, R: int) -> ApplyPlan:
+    order, ent, row_ptr = _row_blocks(ga, R)
+    NB, W = ent.shape[0] // R, ent.shape[1]
+    valid = ent.reshape(NB, R * W) >= 0
+    elems, n_elems, slot = _dedupe_rows(
+        torch.where(valid, ent.reshape(NB, R * W) // 6, -1))
+    # valid entries are numbered in row-major order of ent, which is the
+    # order of row_ptr: rows in block order, table order within a row
+    local = torch.cumsum(valid.to(torch.int64), dim=1) - 1
+    blk = torch.arange(NB, device=ent.device)[:, None].expand(NB, R * W)
+    dst = torch.full((NB, elems.shape[1], 6), -1, dtype=torch.int64,
+                     device=ent.device)
+    dst[blk[valid], slot[valid], ent.reshape(NB, R * W)[valid] % 6] = \
+        local[valid]
+    per_block = row_ptr[R::R] - row_ptr[:-1:R]
+    n_distinct = torch.unique(ent[ent >= 0] // 6).numel()
+    return ApplyPlan(rows=R, order=order, row_ptr=row_ptr.to(torch.int32),
+                     elems=elems.to(torch.int32).contiguous(),
+                     n_elems=n_elems.to(torch.int32),
+                     dst=dst.to(torch.int16).contiguous(),
+                     max_entries=max(int(per_block.max()), 1),
+                     recompute=float(n_elems.sum()) / max(n_distinct, 1))
 
 
 def gather_scatter(ga: GridArrays):
@@ -228,7 +337,7 @@ def gather_scatter(ga: GridArrays):
                          valid_v=ga.dof_gather_valid_v,
                          idx_e=ga.dof_gather_e,
                          valid_e=ga.dof_gather_valid_e,
-                         plan=mass_plan(ga))
+                         plan=mass_plan(ga), apply_plan=apply_plan(ga))
 
 
 def eps_arrays(p: EpsParams, device, dtype=torch.float32) -> EpsArrays:

@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels, their loader and their plain PyTorch twins:
-K1 the A(beta_b) element math, K2 the element -> DOF accumulate, K3 the
+K1 the packed A(beta_b) apply with its mask and park (element math and
+accumulate in one kernel), K2 the element -> DOF accumulate, K3 the
 fused DOF-centric mass apply (plain, or one step of the B^{-1}
 semi-iteration), K5 the element part of the stacked-block apply, K7 the
 scalar pencil's element blocks, K8 the pencil's spectrum bound.
@@ -51,8 +52,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "pl_apply_vector3_elem": [_P, _P, _P, _P, _P, _P, _P, _F,
-                              _I, _I, _I, _I, _P, _P],
+    "pl_apply_vector3": [_P] * 14 + [_F] + [_I] * 8 + [_P, _P],
     "pl_accumulate": [_P, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _P, _P],
     "pl_mass_apply": [_P] * 14 + [_F] * 4 + [_I] * 6 + [_P],
@@ -179,7 +179,7 @@ def _stream(device) -> int:
 
 
 # ---------------------------------------------------------------------------
-# K1: A(beta_b) element math
+# K1: the packed A(beta_b) apply
 # ---------------------------------------------------------------------------
 
 def apply_vector3_elem_plain(Xm, elem_dofs, gp, w, inv_eps, betas, alpha,
@@ -218,43 +218,78 @@ def apply_vector3_elem_plain(Xm, elem_dofs, gp, w, inv_eps, betas, alpha,
     return torch.bmm(Ph.transpose(1, 2), STT)
 
 
-def apply_vector3_elem(Xm, elem_dofs, gp, w, inv_eps, betas, alpha: float,
-                       N, k: int):
-    """K1 (``csrc/apply_vector3.cu``): A(beta_b) element results.
+def apply_vector3_plain(X, gs, gp, w, inv_eps, betas, alpha, N, mask,
+                        parks):
+    """Plain twin of K1: m * sum_e A_e(beta_b) (m X)_e + park_b (X - m X)
+    as three passes, the mask, the element math and K2's twin with its
+    epilogue."""
+    D, L = X.shape
+    B = betas.shape[0]
+    Ye = apply_vector3_elem_plain(X * mask[:, None], gs.elem_dofs, gp, w,
+                                  inv_eps, betas, alpha, N, L // (3 * B))
+    return accumulate_plain(Ye, gs.idx_v, gs.valid_v, gs.idx_e, gs.valid_e,
+                            X, mask, parks.repeat_interleave(L // B))
 
-    Xm (D, L) f32 masked block with L = B * 3 * k; elem_dofs (E, 6)
-    int32; gp (E, Q, 6, 2); w (E, Q); inv_eps (B, E, Q); betas (B,);
-    N (Q, 6). Returns Ye (E, 6, L).
+
+def apply_vector3(X, gs, gp, w, inv_eps, betas, alpha: float, N, mask,
+                  parks):
+    """K1 (``csrc/apply_vector3.cu``): the packed A(beta_b) apply,
+    ``m * sum_e A_e(beta_b) (m X)_e + park_b * (X - m X)``, one launch.
+
+    X (D, L) f32 with L = B * 3 * k in the (B, 3, k) lane order; ``gs``
+    a GatherScatter (the kernel reads ``elem_dofs`` and the row blocks
+    and element halos of ``gs.apply_plan``; the twin the element and
+    transpose tables); gp (E, Q, 6, 2), starting on 16 bytes; w (E, Q);
+    inv_eps (B, E, Q); betas (B,); N (Q, 6); mask (D,); parks (B,).
+    Returns Y (D, L).
     """
-    if Xm.device.type == "cpu":
-        return apply_vector3_elem_plain(Xm, elem_dofs, gp, w, inv_eps,
-                                        betas, alpha, N, k)
-    dev = Xm.device
-    D, L = Xm.shape
-    E = elem_dofs.shape[0]
+    if X.device.type == "cpu":
+        return apply_vector3_plain(X, gs, gp, w, inv_eps, betas, alpha, N,
+                                   mask, parks)
+    dev = X.device
+    D, L = X.shape
+    E = gs.elem_dofs.shape[0]
     B = betas.shape[0]
     Q = w.shape[1]
-    if L != 3 * B * k:
-        raise ValueError(f"lane count {L} != 3 * B * k = {3 * B * k}")
-    f32 = torch.float32
-    _require(Xm, "Xm", f32, dev)
-    _require(elem_dofs, "elem_dofs", torch.int32, dev, (E, 6))
+    if L % (3 * B):
+        raise ValueError(f"lane count {L} is not B * 3 * k for B = {B}")
+    pl = gs.apply_plan
+    NB, HE = pl.elems.shape
+    f32, i32 = torch.float32, torch.int32
+    _require(X, "X", f32, dev)
+    _require(gs.elem_dofs, "elem_dofs", i32, dev, (E, 6))
     _require(gp, "gp", f32, dev, (E, Q, 6, 2))
+    if gp.data_ptr() % 16:
+        raise ValueError("gp must start on a 16-byte boundary (the kernel "
+                         "loads a quadrature point's gradients as float4)")
     _require(w, "w", f32, dev, (E, Q))
     _require(inv_eps, "inv_eps", f32, dev, (B, E, Q))
     _require(betas, "betas", f32, dev, (B,))
     _require(N, "N", f32, dev, (Q, 6))
-    Ye = torch.empty((E, 6, L), dtype=f32, device=dev)
-    rc = lib().pl_apply_vector3_elem(
-        Xm.data_ptr(), elem_dofs.data_ptr(), gp.data_ptr(), w.data_ptr(),
-        inv_eps.data_ptr(), betas.data_ptr(), N.data_ptr(), float(alpha),
-        E, B, k, Q, Ye.data_ptr(), _stream(dev))
-    _check(rc, "apply_vector3_elem")
-    _count(apply_vector3_elem)
-    return Ye
+    _require(mask, "mask", f32, dev, (D,))
+    _require(parks, "parks", f32, dev, (B,))
+    if NB != -(-D // pl.rows):
+        raise ValueError(f"plan of {NB} blocks of {pl.rows} rows does not "
+                         f"cover {D} rows")
+    _require(pl.order, "plan.order", i32, dev, (D,))
+    _require(pl.row_ptr, "plan.row_ptr", i32, dev, (NB * pl.rows + 1,))
+    _require(pl.elems, "plan.elems", i32, dev)
+    _require(pl.n_elems, "plan.n_elems", i32, dev, (NB,))
+    _require(pl.dst, "plan.dst", torch.int16, dev, (NB, HE, 6))
+    Y = torch.empty((D, L), dtype=f32, device=dev)
+    rc = lib().pl_apply_vector3(
+        X.data_ptr(), gs.elem_dofs.data_ptr(), gp.data_ptr(), w.data_ptr(),
+        inv_eps.data_ptr(), betas.data_ptr(), N.data_ptr(), mask.data_ptr(),
+        parks.data_ptr(), pl.order.data_ptr(), pl.row_ptr.data_ptr(),
+        pl.elems.data_ptr(), pl.n_elems.data_ptr(), pl.dst.data_ptr(),
+        float(alpha), D, E, B, L // (3 * B), Q, pl.rows, HE,
+        int(pl.max_entries), Y.data_ptr(), _stream(dev))
+    _check(rc, "apply_vector3")
+    _count(apply_vector3)
+    return Y
 
 
-apply_vector3_elem.launches = 0
+apply_vector3.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -9,10 +9,10 @@ the operator applies, so every gather and accumulate serves all
 components, designs and subspace columns at once. Only 1/eps, beta,
 the filter interval and the park value vary per design.
 
-Every filter step runs four hand-written kernels (``cuda_kernels`` K1-K3
-and ``triton_kernels`` K4): the A(beta_b) element math (K1), the
-element->DOF accumulate with its mask/park epilogue (K2), the fused
-mass apply, one launch per degree step of B^{-1} (K3), and the
+Every filter step runs three hand-written kernels (``cuda_kernels`` K1
+and K3, ``triton_kernels`` K4): the packed A(beta_b) apply with its
+mask and park, element math and accumulate in one launch (K1), the
+fused mass apply, one launch per degree step of B^{-1} (K3), and the
 recurrence step (K4). The dense per-design Rayleigh-Ritz steps are
 ``torch.linalg``. ``_apply_mass_fused_plain`` and
 ``_apply_binv_fused_plain`` keep the unfused form of the mass path as
@@ -37,9 +37,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .assembly import MassPlan
+from .assembly import ApplyPlan, MassPlan
 from .cuda_kernels import (BinvStep, accumulate, apply_stacked_elem,
-                           apply_vector3_elem, mass_apply, mass_apply_plain,
+                           apply_vector3, mass_apply, mass_apply_plain,
                            pencil_bounds)
 from .quadrature import RULES, p2_shape
 from .triton_kernels import cheb_step
@@ -59,7 +59,9 @@ class GatherScatter(NamedTuple):
     rows [0, split) (mesh vertices, valence up to ~12), the width-2
     table rows [split, D) (P2 edge midpoints, valence exactly <= 2).
     ``plan`` is the mass kernel's per-grid plan (``assembly.mass_plan``:
-    its Morton row blocks and their halos); storage order is unchanged.
+    its Morton row blocks and their halos), ``apply_plan`` the A(beta)
+    apply kernel's (``assembly.apply_plan``: larger row blocks and their
+    element halos); storage order is unchanged.
     """
 
     elem_dofs: torch.Tensor     # (E, 6) int32
@@ -68,6 +70,7 @@ class GatherScatter(NamedTuple):
     idx_e: torch.Tensor         # (D - split, 2) int32
     valid_e: torch.Tensor       # (D - split, 2) bool
     plan: MassPlan              # the mass kernel's row blocks and halos
+    apply_plan: ApplyPlan       # the A(beta) apply's row blocks, elements
 
 
 class QFactor(NamedTuple):
@@ -135,20 +138,16 @@ def _accumulate_fused(Ye, gs: GatherScatter, X=None, mask=None, park=None):
 
 def _apply_vector3_fused(qs: QFactorSweep, gs: GatherScatter, mask, parks,
                          betas, alpha, Xf):
-    """Packed A(beta_b) apply in fused-lane layout.
+    """Packed A(beta_b) apply in fused-lane layout, one K1 launch.
 
     Xf: (D, B, 3, k) -> (D, B, 3, k); mask (D,) f32 interior mask,
-    parks and betas (B,) f32. K1 forms the element results from the
-    masked block, K2 sums them to DOFs and applies mask and park.
+    parks and betas (B,) f32: m * A(beta_b)(m X) + park_b * (X - m X).
     """
     D, B, C, k = Xf.shape
-    L = B * C * k
-    Xl = Xf.reshape(D, L)
-    Xm = Xl * mask[:, None]
-    Ye = apply_vector3_elem(Xm, gs.elem_dofs, qs.gp, qs.w, qs.inv_eps,
-                            betas, float(alpha), shape_table(Xf.device), k)
-    pk = parks.repeat_interleave(C * k)
-    return _accumulate_fused(Ye, gs, Xl, mask, pk).reshape(D, B, C, k)
+    return apply_vector3(Xf.reshape(D, B * C * k), gs, qs.gp, qs.w,
+                         qs.inv_eps, betas, float(alpha),
+                         shape_table(Xf.device), mask,
+                         parks).reshape(D, B, C, k)
 
 
 def _apply_mass_fused_plain(qs: QFactorSweep, gs: GatherScatter, mask, Xl,
@@ -268,14 +267,25 @@ def _sweep_apply_t(qs, gs, mask, dinv_sqrt, lo, hi, parks, betas, alpha,
     return apply_w, c, h
 
 
-def _sweep_iterate(apply_w, c, h, T0, T1, steps: int, renorm_every: int):
-    """``steps`` recurrence steps T2 = 2 T(T1) - T0 (K4), with the
-    per-(design, column) renorm every ``renorm_every`` steps."""
-    for i in range(steps):
+def _sweep_iterate(apply_w, c, h, T0, T1, steps: int, renorm_every: int,
+                   start: int = 0):
+    """``steps`` recurrence steps T2 = 2 T(T1) - T0 (K4) on (D, B, C, k)
+    blocks, numbered from ``start``, with the per-(design, column) renorm
+    on steps i with i % renorm_every == renorm_every - 1. The renorm is
+    deferred (see ``triton_kernels``): its scale rides on the next two
+    steps' inputs, and a scale still pending at the end is applied to
+    the returned last iterate."""
+    if renorm_every < 2:
+        raise ValueError(f"renorm_every {renorm_every} < 2: a deferred "
+                         "renorm needs a plain step after it")
+    s0 = s1 = None                  # pending renorm scales of T0, T1
+    for i in range(start, start + steps):
         do = (i % renorm_every) == (renorm_every - 1)
-        T2 = cheb_step(apply_w(T1), T1, T0, c, h, renorm=do)
+        T2, s = cheb_step(apply_w(T1), T1, T0, c, h, renorm=do, scale=s1,
+                          scale_t0=s0)
         T0, T1 = T1, T2
-    return T0, T1
+        s0, s1 = (s, s) if do else (s1, None)
+    return T1 if s1 is None else T1 * s1[None, :, None, :]
 
 
 def cheb_sweep_filter(qs, gs, mask, dinv_sqrt, lo, hi, parks, betas, alpha,
@@ -287,9 +297,8 @@ def cheb_sweep_filter(qs, gs, mask, dinv_sqrt, lo, hi, parks, betas, alpha,
     apply_w, c, h = _sweep_apply_t(qs, gs, mask, dinv_sqrt, lo, hi, parks,
                                    betas, alpha, cuts, bounds, binv_degree)
     T0 = Xf
-    T1 = cheb_step(apply_w(T0), T0, None, c, h)
-    _, T1 = _sweep_iterate(apply_w, c, h, T0, T1, degree - 1, renorm_every)
-    return T1
+    T1, _ = cheb_step(apply_w(T0), T0, None, c, h)
+    return _sweep_iterate(apply_w, c, h, T0, T1, degree - 1, renorm_every)
 
 
 def cheb_sweep_rr_impl(qs, gs, mask, parks, betas, alpha, Xff):
@@ -522,24 +531,19 @@ def cheb_rr_pass_impl(Abig, w, gs, mask, dinv_sqrt, lo, hi, park, X, cut,
     h = (0.5 * (bound - cut)).to(f32).reshape(1).contiguous()
     pk = _park_lanes(park, k, X)
 
+    shape = (CD, 1, 1, k)
+
     def apply_w(V):
-        W = _apply_stacked(Abig, gs, mask, pk, V, C)
-        return _apply_binv(w, gs, mask, dinv_sqrt, lo, hi, W, C, binv_degree)
-
-    def step(V, T0, renorm=False):
-        # K4 on the block viewed as (C D, 1, 1, k): one design, and the
+        # K4 takes the block as (C D, 1, 1, k): one design, and the
         # column norm over all C D rows
-        shape = (CD, 1, 1, k)
-        return cheb_step(apply_w(V).view(shape), V.view(shape),
-                         None if T0 is None else T0.view(shape), c, h,
-                         renorm=renorm).view(CD, k)
+        W = _apply_stacked(Abig, gs, mask, pk, V.view(CD, k), C)
+        return _apply_binv(w, gs, mask, dinv_sqrt, lo, hi, W, C,
+                           binv_degree).view(shape)
 
-    T0 = X.to(f32).contiguous()
-    T1 = step(T0, None)
-    for i in range(1, degree):
-        T2 = step(T1, T0, (i % renorm_every) == (renorm_every - 1))
-        T0, T1 = T1, T2
-    Xf = T1
+    T0 = X.to(f32).contiguous().view(shape)
+    T1, _ = cheb_step(apply_w(T0), T0, None, c, h)
+    Xf = _sweep_iterate(apply_w, c, h, T0, T1, degree - 1, renorm_every,
+                        start=1).view(CD, k)
 
     # QR basis (stable for near-collinear filtered columns), then
     # Rayleigh-Ritz via a Cholesky congruence of the small (k, k) Gram.

@@ -8,27 +8,35 @@ and the three-term recurrence is T2 = 2 T(T1) - T0, over the fused-lane
 block (D, B, C, k) with per-design centre c_b and half-width h_b (C = 3
 components in the packed vectorial sweep; the scalar solver's stacked
 block (C D, k) goes in as (C D, 1, 1, k)). The opening step (``T0 is
-None``) returns T(V) itself. On renorm steps the recurrence is rescaled:
-s = 1 / (||T2||_(D, C) + 1e-30) for every (design, column), and both T1
-and T2 are multiplied by s, T1 in place.
+None``) returns T(V) itself.
 
-Three programs, all launched on PyTorch's current stream:
+The renorm is deferred. A renorm step writes T2 unscaled and forms
+s = 1 / (||T2||_(D, C) + 1e-30) for every (design, column) on the
+device; the reference's rescaled pair (s T1, s T2) is then carried as
+the unscaled arrays plus the pending scale s. The recurrence is linear,
+so the next two steps apply s as they read their inputs: a step takes
+an optional scale of V (``scale``, which multiplies 2 T(V), since
+W = B^{-1} A(V) is linear in V) and of T0 (``scale_t0``):
+
+    T2 = scale * 2 (W - c_b V) / h_b - scale_t0 * T0.
+
+Right after a renorm both are s; one step later only ``scale_t0`` is.
+The caller flushes a scale still pending when the recurrence ends.
+
+Two programs, both launched on PyTorch's current stream:
 
 - ``_step``: the fused elementwise pass over (D, L) tiles; on renorm
-  steps it also writes each tile's column sums of T2^2 to a small
-  (row blocks, L) partial array;
-- ``_colnorm``: a grid over (blocks of (design, column) pairs, chunks
-  of row blocks) sums the partials of its chunk over the rows and the C
-  components into a (chunks, B * k) array;
-- ``_rescale``: sums those chunk partials for its lanes (a fixed order,
-  so the result is deterministic), forms s and multiplies T1 and T2 by
-  s in place.
+  steps each program walks NT tiles down the rows and writes its column
+  sums of T2^2 to a small (row groups, L) partial array;
+- ``_colnorm``: one program per block of (design, column) pairs sums
+  the partials over all row groups and the C components in a fixed
+  order (so s is deterministic) and writes s (B, k).
 
 Bound on the H100: bytes. A step reads W, T1, T0 and writes T2, four
-(D, L) f32 arrays; a renorm step adds one read and write of T1 and T2.
-The design fuses the shift, scale, recurrence and the norm's partial
-sums into one pass, so W is never written back in a scaled form and
-T2 is read again only on renorm steps (one in eight).
+(D, L) f32 arrays, whether renorm or not: the scales are (B, k)
+vectors, and the partials 1 / (32 NT) of a block. The design fuses the
+shift, scale, recurrence and the norm's partial sums into one pass, so
+W is never written back in a scaled form and T2 is never read again.
 
 K6 replaces pl_fem_tpu/ops/assembly.py ``eps_at_quadrature``: one fused
 elementwise pass over the E * Q quadrature points, each testing its
@@ -56,30 +64,37 @@ import torch
 
 _BD = 32          # rows per tile
 _BL = 128         # lanes per tile
-_BP = 64          # (design, column) pairs per _colnorm program
-_RCH = 128        # row blocks per _colnorm program
+_NT = 8           # tiles down the rows per program on renorm steps
+_BP = 16          # (design, column) pairs per _colnorm program
+_BR = 64          # row groups per _colnorm load
 _KERNELS: dict = {}
 _LOCK = threading.Lock()
 
 
 def cheb_step_plain(W, V, T0: Optional[torch.Tensor], c, h,
-                    renorm: bool = False):
-    """Plain twin of K4 on (D, B, C, k) blocks; c, h are (B,).
+                    renorm: bool = False, scale=None, scale_t0=None):
+    """Plain twin of K4 on (D, B, C, k) blocks; c, h are (B,), the
+    pending scales ``scale`` (of V) and ``scale_t0`` (of T0) (B, k) or
+    None.
 
-    Returns T2; when ``renorm`` it rescales V in place and returns the
-    rescaled T2, as the kernel does.
+    Returns (T2, s): T2 = scale * 2 (W - c V) / h - scale_t0 * T0 (the
+    opening step (W - c V) / h when T0 is None), and with ``renorm``
+    s = 1 / (||T2||_(D, C) + 1e-30) as (B, k), else None. Nothing is
+    updated in place.
     """
     cb = c[None, :, None, None]
     hb = h[None, :, None, None]
     T2 = (W - cb * V) / hb
     if T0 is not None:
-        T2 = 2.0 * T2 - T0
+        T2 = 2.0 * T2
+        if scale is not None:
+            T2 = scale[None, :, None, :] * T2
+        T0s = T0 if scale_t0 is None else scale_t0[None, :, None, :] * T0
+        T2 = T2 - T0s
+    s = None
     if renorm:
-        s = 1.0 / (torch.linalg.vector_norm(T2, dim=(0, 2), keepdim=True)
-                   + 1e-30)
-        V.mul_(s)
-        T2 = T2 * s
-    return T2
+        s = 1.0 / (torch.linalg.vector_norm(T2, dim=(0, 2)) + 1e-30)
+    return T2, s
 
 
 def _build():
@@ -88,70 +103,62 @@ def _build():
     from triton.language.extra import libdevice
 
     @triton.jit
-    def _step(W, V, T0, C, H, OUT, P, D, L, LB: tl.constexpr,
-              FIRST: tl.constexpr, RENORM: tl.constexpr,
-              BD: tl.constexpr, BL: tl.constexpr):
+    def _step(W, V, T0, C, H, SV, ST0, OUT, P, D, L, K: tl.constexpr,
+              LB: tl.constexpr, FIRST: tl.constexpr, RENORM: tl.constexpr,
+              HAS_SV: tl.constexpr, HAS_ST0: tl.constexpr,
+              BD: tl.constexpr, BL: tl.constexpr, NT: tl.constexpr):
         pid_d = tl.program_id(0)
         pid_l = tl.program_id(1)
-        rows = pid_d * BD + tl.arange(0, BD)
         cols = pid_l * BL + tl.arange(0, BL)
         cmask = cols < L
-        m = (rows[:, None] < D) & cmask[None, :]
-        offs = rows[:, None].to(tl.int64) * L + cols[None, :]
         b = cols // LB
+        pair = b * K + cols % K                        # (design, column)
         cb = tl.load(C + b, mask=cmask, other=0.0)
         hb = tl.load(H + b, mask=cmask, other=1.0)
-        w = tl.load(W + offs, mask=m, other=0.0)
-        v = tl.load(V + offs, mask=m, other=0.0)
-        t = (w - cb[None, :] * v) / hb[None, :]
-        if not FIRST:
-            t0 = tl.load(T0 + offs, mask=m, other=0.0)
-            t = 2.0 * t - t0
-        tl.store(OUT + offs, t, mask=m)
+        if HAS_SV:
+            sv = tl.load(SV + pair, mask=cmask, other=1.0)
+        if HAS_ST0:
+            s0 = tl.load(ST0 + pair, mask=cmask, other=1.0)
+        ps = tl.zeros((BL,), dtype=tl.float32)
+        for it in tl.static_range(NT):
+            rows = (pid_d * NT + it) * BD + tl.arange(0, BD)
+            m = (rows[:, None] < D) & cmask[None, :]
+            offs = rows[:, None].to(tl.int64) * L + cols[None, :]
+            w = tl.load(W + offs, mask=m, other=0.0)
+            v = tl.load(V + offs, mask=m, other=0.0)
+            t = (w - cb[None, :] * v) / hb[None, :]
+            if not FIRST:
+                t = 2.0 * t
+                if HAS_SV:
+                    t = sv[None, :] * t
+                t0 = tl.load(T0 + offs, mask=m, other=0.0)
+                if HAS_ST0:
+                    t0 = s0[None, :] * t0
+                t = t - t0
+            tl.store(OUT + offs, t, mask=m)
+            if RENORM:
+                ps += tl.sum(t * t, axis=0)
         if RENORM:
-            ps = tl.sum(t * t, axis=0)
             tl.store(P + pid_d * L + cols, ps, mask=cmask)
 
     @triton.jit
-    def _colnorm(P, P2, NRB, L, NPAIR, K: tl.constexpr, C: tl.constexpr,
-                 BP: tl.constexpr, RCH: tl.constexpr, BR: tl.constexpr):
-        pid_p = tl.program_id(0)
-        pid_c = tl.program_id(1)
-        pairs = pid_p * BP + tl.arange(0, BP)          # (design, column)
+    def _colnorm(P, S, NRB, L, NPAIR, K: tl.constexpr, C: tl.constexpr,
+                 BP: tl.constexpr, BR: tl.constexpr):
+        pairs = tl.program_id(0) * BP + tl.arange(0, BP)  # (design, column)
         pmask = pairs < NPAIR
         b = pairs // K
         j = pairs - b * K
         base = b * (C * K) + j
         acc = tl.zeros((BP,), dtype=tl.float32)
-        for r0 in range(0, RCH, BR):
-            r = pid_c * RCH + r0 + tl.arange(0, BR)
+        for r0 in range(0, NRB, BR):
+            r = r0 + tl.arange(0, BR)
             rm = (r[:, None] < NRB) & pmask[None, :]
             row = r[:, None].to(tl.int64) * L
             for comp in tl.static_range(C):
                 x = tl.load(P + row + (base + comp * K)[None, :], mask=rm,
                             other=0.0)
                 acc += tl.sum(x, axis=0)
-        tl.store(P2 + pid_c * NPAIR + pairs, acc, mask=pmask)
-
-    @triton.jit
-    def _rescale(T1, T2, P2, NCH, NPAIR, D, L, K: tl.constexpr,
-                 C: tl.constexpr, BD: tl.constexpr, BL: tl.constexpr):
-        pid_d = tl.program_id(0)
-        pid_l = tl.program_id(1)
-        rows = pid_d * BD + tl.arange(0, BD)
-        cols = pid_l * BL + tl.arange(0, BL)
-        cmask = cols < L
-        m = (rows[:, None] < D) & cmask[None, :]
-        offs = rows[:, None].to(tl.int64) * L + cols[None, :]
-        pair = (cols // (C * K)) * K + cols % K
-        ss = tl.zeros((BL,), dtype=tl.float32)
-        for ch in range(0, NCH):
-            ss += tl.load(P2 + ch * NPAIR + pair, mask=cmask, other=0.0)
-        s = 1.0 / (tl.sqrt(ss) + 1e-30)
-        t1 = tl.load(T1 + offs, mask=m, other=0.0)
-        t2 = tl.load(T2 + offs, mask=m, other=0.0)
-        tl.store(T1 + offs, t1 * s[None, :], mask=m)
-        tl.store(T2 + offs, t2 * s[None, :], mask=m)
+        tl.store(S + pairs, 1.0 / (tl.sqrt(acc) + 1e-30), mask=pmask)
 
     @triton.jit
     def _eps(XY, POS, R2, EC, ECL, PS, PT, PSTR, PORD, RE, IM, P, NCORES,
@@ -194,8 +201,7 @@ def _build():
         tl.store(RE + offs, re, mask=m)
         tl.store(IM + offs, re * sigma, mask=m)
 
-    return {"step": _step, "colnorm": _colnorm, "rescale": _rescale,
-            "eps": _eps}
+    return {"step": _step, "colnorm": _colnorm, "eps": _eps}
 
 
 def _kernels():
@@ -205,22 +211,30 @@ def _kernels():
     return _KERNELS
 
 
-def cheb_step(W, V, T0: Optional[torch.Tensor], c, h, renorm: bool = False):
+def cheb_step(W, V, T0: Optional[torch.Tensor], c, h, renorm: bool = False,
+              scale=None, scale_t0=None):
     """K4: one Chebyshev recurrence step on (D, B, C, k) f32 blocks.
 
-    T2 = 2 (W - c_b V) / h_b - T0, or (W - c_b V) / h_b when ``T0`` is
-    None. With ``renorm`` the per-(design, column) norm over (D, C)
-    rescales V in place and the returned T2.
+    T2 = scale * 2 (W - c_b V) / h_b - scale_t0 * T0, or (W - c_b V) / h_b
+    when ``T0`` is None; ``scale`` and ``scale_t0`` are the pending
+    renorm scales (B, k) of V and T0, None for 1. Returns (T2, s): with
+    ``renorm``, s = 1 / (||T2||_(D, C) + 1e-30) as (B, k), formed on the
+    device and pending on both V and T2; else s is None. Two launches on
+    a renorm step, one otherwise; nothing is updated in place.
     """
+    if renorm and scale is not None:
+        # s would then be pending on V times ``scale``, not on V
+        raise ValueError("a renorm step right after a renorm step")
     if W.device.type == "cpu":
-        return cheb_step_plain(W, V, T0, c, h, renorm)
+        return cheb_step_plain(W, V, T0, c, h, renorm, scale, scale_t0)
     dev = W.device
     if W.dim() != 4:
         raise ValueError(f"expected (D, B, C, k) blocks, got {tuple(W.shape)}")
     D, B, C, k = W.shape
     arrays = {"W": W, "V": V, "c": c, "h": h}
-    if T0 is not None:
-        arrays["T0"] = T0
+    for name, t in (("T0", T0), ("scale", scale), ("scale_t0", scale_t0)):
+        if t is not None:
+            arrays[name] = t
     for name, t in arrays.items():
         if t.device != dev or t.dtype != torch.float32 \
                 or not t.is_contiguous():
@@ -232,27 +246,34 @@ def cheb_step(W, V, T0: Optional[torch.Tensor], c, h, renorm: bool = False):
                              f"!= {tuple(W.shape)}")
     if c.shape != (B,) or h.shape != (B,):
         raise ValueError("c and h must be (B,) per-design vectors")
+    for name in ("scale", "scale_t0"):
+        if name in arrays and arrays[name].shape != (B, k):
+            raise ValueError(f"{name} must be a (B, k) = {(B, k)} scale")
+    if T0 is None and (scale is not None or scale_t0 is not None):
+        raise ValueError("the opening step takes no pending scale")
     L = B * C * k
     out = torch.empty_like(W)
-    nrb = -(-D // _BD)
+    nt = _NT if renorm else 1
+    nrb = -(-D // (_BD * nt))
     grid = (nrb, -(-L // _BL))
     P = torch.empty((nrb, L), dtype=torch.float32, device=dev) \
         if renorm else out
-    nch = -(-nrb // _RCH)
-    P2 = torch.empty((nch, B * k), dtype=torch.float32, device=dev) \
-        if renorm else out
+    s = torch.empty((B, k), dtype=torch.float32, device=dev) \
+        if renorm else None
     with _LOCK:
         kn = _kernels()
-        kn["step"][grid](W, V, W if T0 is None else T0, c, h, out, P, D, L,
-                         LB=C * k, FIRST=T0 is None, RENORM=renorm,
-                         BD=_BD, BL=_BL)
+        kn["step"][grid](W, V, W if T0 is None else T0, c, h,
+                         c if scale is None else scale,
+                         c if scale_t0 is None else scale_t0, out, P, D, L,
+                         K=k, LB=C * k, FIRST=T0 is None, RENORM=renorm,
+                         HAS_SV=scale is not None,
+                         HAS_ST0=scale_t0 is not None, BD=_BD, BL=_BL,
+                         NT=nt)
         if renorm:
-            kn["colnorm"][(-(-(B * k) // _BP), nch)](
-                P, P2, nrb, L, B * k, K=k, C=C, BP=_BP, RCH=_RCH, BR=32)
-            kn["rescale"][grid](V, out, P2, nch, B * k, D, L, K=k, C=C,
-                                BD=_BD, BL=_BL)
+            kn["colnorm"][(-(-(B * k) // _BP),)](
+                P, s, nrb, L, B * k, K=k, C=C, BP=_BP, BR=_BR)
         cheb_step.launches += 1
-    return out
+    return out, s
 
 
 cheb_step.launches = 0

@@ -8,12 +8,16 @@ sweep's phase seconds, on one NVIDIA GPU.
 (default: the one holding this file; it must have ``workloads.py`` and
 ``cli.generator``), so two trees can be compared in one process per tree
 on the same card. The workloads are those of ``chip_smoke.py``, defined
-in ``pl_fem_tpu_torch/workloads.py``. Two measurements:
+in ``pl_fem_tpu_torch/workloads.py``. Three measurements:
 
 1. the config-1 fast sweep: a warm-up, then SWEEPS timed sweeps, each
    with its phase seconds
    (``TrueVectorialMaxwellSolver.last_sweep_times``);
-2. the 7-core sample of the r5 dataset run's draw (the CLI's arguments
+2. one packed A(beta) apply (``kernels._apply_vector3_fused``, through
+   whatever kernels the tree runs for it), timed with CUDA events at the
+   config-1 sweep's shape (B = 8, k = 22) and at the dataset run's
+   largest (B = 5, k = 42) on a mesh at its settings;
+3. the 7-core sample of the r5 dataset run's draw (the CLI's arguments
    from ``workloads.dataset_argv``, the sweep engine): once to warm up
    (Triton, coarse meshes), then once under ``torch.profiler``. It
    prints the wall time, the device time (the sum of the kernel and
@@ -38,10 +42,11 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 SWEEPS = 3                  # timed config-1 sweeps, after one warm-up
 
-# kernel-name fragments of each family, first match wins (K3's also
-# matches its element-pass form, so older checkouts read the same)
+# kernel-name fragments of each family, first match wins (K1's, K3's
+# and K4's also match their older kernels' names, so older checkouts
+# read the same)
 FAMILIES = (
-    ("K1 apply_vector3_elem", ("apply_vector3_elem",)),
+    ("K1 apply_vector3", ("apply_vector3",)),
     ("K2 accumulate", ("accumulate",)),
     ("K3 mass apply", ("mass_apply", "apply_mass_elem")),
     ("K4 cheb_step (Triton)", ("_step", "_colnorm", "_rescale")),
@@ -96,6 +101,63 @@ def config1_sweeps(n: int):
         if i:
             runs.append({"wall_s": wall, "phases_s": phases})
     return {"D": int(dg.n_dofs_padded), "runs": runs}
+
+
+def apply_times(reps: int = 20):
+    """CUDA-event milliseconds of one packed A(beta) apply at the two
+    shapes of the module note (after one warm-up call each)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pl_fem_tpu_torch import cli
+    from pl_fem_tpu_torch import workloads as wl
+    from pl_fem_tpu_torch.ops import assembly as ta
+    from pl_fem_tpu_torch.ops import kernels as tk
+    from pl_fem_tpu_torch.ops.femgrid import MeshGenerator, export_device_grid
+
+    dev = torch.device("cuda")
+    _, _, dg1, _ = wl.config1_sweep()
+    with tempfile.TemporaryDirectory(prefix="profile_design_") as tmp:
+        cfg = cli.generator(wl.dataset_argv(tmp))[0].config
+    dg5 = export_device_grid(MeshGenerator.generate(
+        wl.config1_geom(1.55), 1.0, cfg), cfg.mesh.bucket_rounding)
+    out = {}
+    for name, dg, B, k in (("config1", dg1, 8, 22), ("dataset", dg5, 5, 42)):
+        ga = ta.grid_to_device(dg, dev)
+        gs = ta.gather_scatter(ga)
+        geoms = [wl.config1_geom(float(w)) for w in np.linspace(1.5, 1.6, B)]
+        qfs = [ta.assemble_vector3_qf(ga, ta.eps_arrays(g.eps_params(),
+                                                        dev))[0]
+               for g in geoms]
+        qs = tk.QFactorSweep(invJT=qfs[0].invJT, w=qfs[0].w,
+                             inv_eps=torch.stack([q.inv_eps for q in qfs]),
+                             gp=ga.grad_phys)
+        betas = torch.tensor([g.k0 * 1.49 for g in geoms], device=dev)
+        parks = torch.full((B,), 50.0, device=dev)
+        g = torch.Generator(device=dev).manual_seed(0)
+        X = torch.randn((dg.n_dofs_padded, B, 3, k), generator=g,
+                        device=dev)
+
+        def apply():
+            return tk._apply_vector3_fused(qs, gs, ga.interior_mask, parks,
+                                           betas, 1.0, X)
+
+        apply()
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(reps):
+            apply()
+        t1.record()
+        torch.cuda.synchronize()
+        ms = t0.elapsed_time(t1) / reps
+        out[name] = {"D": int(dg.n_dofs_padded), "B": B, "k": k, "ms": ms}
+        print(f"A(beta) apply at {name} (D={dg.n_dofs_padded}, B={B}, "
+              f"k={k}): {ms:.3f} ms", flush=True)
+    return out
 
 
 def dataset_design(n_cores: int = 7, scalar: bool = False):
@@ -204,6 +266,7 @@ def main(argv=None) -> int:
     else:
         result = {"card": card, "repo": str(repo),
                   "config1": config1_sweeps(SWEEPS),
+                  "apply_ms": apply_times(),
                   "dataset_design": dataset_design()}
     line = json.dumps(result)
     if args.out:

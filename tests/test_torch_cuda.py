@@ -63,15 +63,33 @@ def setup(dev):
                 betas=torch.tensor([g.k0 * 1.49 for g in geoms], device=dev))
 
 
-def test_apply_vector3_elem(setup, dev):
+def _check_apply(qs, gs, mask, betas, X, parks):
+    """K1 against its twin: within 1e-5 of max|y|, one launch, and the
+    same bits from a second launch."""
+    args = (gs, qs.gp, qs.w, qs.inv_eps, betas, 1.0,
+            tk.shape_table(X.device), mask, parks)
+    n0 = ck.apply_vector3.launches
+    y = ck.apply_vector3(X, *args)
+    assert ck.apply_vector3.launches == n0 + 1
+    assert _rel(ck.apply_vector3_plain(X, *args), y) <= 1e-5
+    assert torch.equal(y, ck.apply_vector3(X, *args))
+
+
+@pytest.mark.parametrize("rows", [ta.APPLY_ROWS, ta.APPLY_ROWS // 2])
+@pytest.mark.parametrize("b,k", [(1, K), (B, K), (B, 22)])
+def test_apply_vector3(setup, dev, b, k, rows):
+    """The fused A(beta) apply at L = 1*3*7, 3*3*7 and 3*3*22, on the
+    grid's plan and on one of half its rows per block (the kernel takes
+    256 threads instead of 512 there)."""
     s = setup
-    Xm = s["X"] * s["ga"].interior_mask[:, None]
-    args = (s["gs"].elem_dofs, s["qs"].gp, s["qs"].w, s["qs"].inv_eps,
-            s["betas"], 1.0, tk.shape_table(dev), K)
-    n0 = ck.apply_vector3_elem.launches
-    y = ck.apply_vector3_elem(Xm, *args)
-    assert ck.apply_vector3_elem.launches == n0 + 1
-    assert _rel(ck.apply_vector3_elem_plain(Xm, *args), y) <= 1e-5
+    qs = s["qs"]._replace(inv_eps=s["qs"].inv_eps[:b].contiguous())
+    gs = s["gs"]
+    if rows != gs.apply_plan.rows:
+        gs = gs._replace(apply_plan=ta._apply_plan(s["ga"], rows))
+    X = torch.randn((s["X"].shape[0], b * 3 * k), generator=s["gen"],
+                    device=dev)
+    _check_apply(qs, gs, s["ga"].interior_mask, s["betas"][:b], X,
+                 torch.linspace(10.0, 50.0, b, device=dev))
 
 
 # L = 1 and 3 take the row-per-thread path, 21 / 22 / 24 the lane path
@@ -142,38 +160,73 @@ def test_mass_apply(setup, dev):
     _check_mass(s["ga"], s["gs"], s["qs"], s["X"], _dinv(s["ga"], dev))
 
 
-@pytest.mark.parametrize("first,renorm", [(True, False), (False, False),
-                                          (False, True)])
-def test_cheb_step(dev, first, renorm):
+@pytest.mark.parametrize("first,renorm,scaled", [
+    (True, False, False), (False, False, False), (False, True, False),
+    (False, False, True)])
+def test_cheb_step(dev, first, renorm, scaled):
     g = torch.Generator(device=dev).manual_seed(1)
     W, V, T0 = (torch.randn((300, B, 3, K), generator=g, device=dev)
                 for _ in range(3))
     T0 = None if first else T0
     c = torch.tensor([1.0, 2.0, 3.0], device=dev)
     h = torch.tensor([4.0, 5.0, 6.0], device=dev)
-    V1, V2 = V.clone(), V.clone()
-    y = trk.cheb_step(W, V1, T0, c, h, renorm=renorm)
-    ref = trk.cheb_step_plain(W, V2, T0, c, h, renorm=renorm)
+    kw = {}
+    if scaled:
+        kw = {n: torch.rand((B, K), generator=g, device=dev) + 0.5
+              for n in ("scale", "scale_t0")}
+    V1 = V.clone()
+    y, s = trk.cheb_step(W, V1, T0, c, h, renorm=renorm, **kw)
+    ref, rs = trk.cheb_step_plain(W, V, T0, c, h, renorm=renorm, **kw)
     assert _rel(ref, y) <= 1e-5
-    assert _rel(V2, V1) <= 1e-5
+    assert torch.equal(V1, V)
+    assert (s is None) == (not renorm)
+    if renorm:
+        assert s.shape == (B, K) and _rel(rs, s) <= 1e-5
+        assert torch.equal(s, trk.cheb_step(W, V1, T0, c, h, renorm=True)[1])
 
 
 @pytest.mark.parametrize("renorm", [False, True])
 def test_cheb_step_single_component(dev, renorm):
     """K4 on the scalar solver's (D, 1, 1, k) block: one design, one
-    component, the column norm over all rows."""
+    component, the column norm over all rows; one launch counted."""
     g = torch.Generator(device=dev).manual_seed(4)
     W, V, T0 = (torch.randn((5000, 1, 1, 22), generator=g, device=dev)
                 for _ in range(3))
     c = torch.tensor([3.0], device=dev)
     h = torch.tensor([40.0], device=dev)
-    V1, V2 = V.clone(), V.clone()
     n0 = trk.cheb_step.launches
-    y = trk.cheb_step(W, V1, T0, c, h, renorm=renorm)
+    y, s = trk.cheb_step(W, V, T0, c, h, renorm=renorm)
     assert trk.cheb_step.launches == n0 + 1
-    ref = trk.cheb_step_plain(W, V2, T0, c, h, renorm=renorm)
+    ref, rs = trk.cheb_step_plain(W, V, T0, c, h, renorm=renorm)
     assert _rel(ref, y) <= 1e-5
-    assert _rel(V2, V1) <= 1e-5
+    if renorm:
+        assert _rel(rs, s) <= 1e-5
+
+
+@pytest.mark.parametrize("C,shape", [(3, (700, 2, 3, 13)),
+                                     (1, (5000, 1, 1, 22))])
+def test_cheb_step_sequence(dev, C, shape):
+    """T1 = T(T0), then 17 recurrence steps with the deferred renorm (two
+    renorms, the last step right after one) on the card == the same
+    steps through the twin on the CPU, for a fixed linear W(V) = A * V."""
+    g = torch.Generator(device=dev).manual_seed(5 + C)
+    A, T0 = (torch.randn(shape, generator=g, device=dev) for _ in range(2))
+    A = A + 3.0
+    Bd = shape[1]
+    c = torch.linspace(0.5, 1.0, Bd, device=dev)
+    h = torch.linspace(4.0, 5.0, Bd, device=dev)
+
+    def run(d):
+        a = A.to(d)
+        T = T0.to(d)
+        cd, hd = c.to(d), h.to(d)
+        T1, _ = trk.cheb_step(a * T, T, None, cd, hd)
+        return tk._sweep_iterate(lambda V: a * V, cd, hd, T, T1, 17, 8)
+
+    n0 = trk.cheb_step.launches
+    y = run(dev)
+    assert trk.cheb_step.launches == n0 + 18
+    assert _rel(run("cpu"), y) <= 1e-5
 
 
 # ---------------------------------------------------------------------------
@@ -346,9 +399,9 @@ def test_scalar_solve_on_card_matches_cpu(dev):
 
 
 def test_filter_on_card_matches_cpu(setup, dev):
-    """Twelve filter steps through all four kernels == the same steps
-    through the twins on the CPU (1e-4: rounding amplified by the
-    Chebyshev growth between renorms)."""
+    """Twelve filter steps through K1, K3 and K4 (no K2: the fused apply
+    sums its own rows) == the same steps through the twins on the CPU
+    (1e-4: rounding amplified by the Chebyshev growth between renorms)."""
     s = setup
     ga, gs, qs = s["ga"], s["gs"], s["qs"]
     D = ga.interior_mask.shape[0]
@@ -370,12 +423,12 @@ def test_filter_on_card_matches_cpu(setup, dev):
             cast(dinv), lo, hi, t["parks"], cast(s["betas"]), 1.0,
             cast(X), t["cuts"], t["bounds"], degree=12, binv_degree=1)
 
-    counts = [f.launches for f in (ck.apply_vector3_elem, ck.accumulate,
-                                   ck.mass_apply, trk.cheb_step)]
+    kernels = (ck.apply_vector3, ck.mass_apply, trk.cheb_step)
+    counts = [f.launches for f in kernels]
+    n_acc = ck.accumulate.launches
     y = run(dev, vec)
-    after = [f.launches for f in (ck.apply_vector3_elem, ck.accumulate,
-                                  ck.mass_apply, trk.cheb_step)]
-    assert all(a > b for a, b in zip(after, counts))
+    assert all(f.launches > n for f, n in zip(kernels, counts))
+    assert ck.accumulate.launches == n_acc        # K1 sums its own rows
     assert _rel(run("cpu", vec), y) <= 1e-4
 
 
@@ -403,12 +456,30 @@ def test_wrappers_refuse_bad_input(setup, dev):
     with pytest.raises(TypeError):
         ck.accumulate(torch.zeros((2, 6, 3), device=dev, dtype=torch.float64),
                       gs.idx_v, gs.valid_v, gs.idx_e, gs.valid_e)
+    qs, betas = s["qs"], s["betas"]
+    parks = torch.ones(B, device=dev)
+    apply_args = (gs, qs.gp, qs.w, qs.inv_eps, betas, 1.0, N, mask)
+    Xa = torch.zeros((D, B * 3 * K), device=dev)
+    with pytest.raises(TypeError):
+        ck.apply_vector3(Xa.double(), *apply_args, parks)
+    with pytest.raises(ValueError):             # not B * 3 * k lanes
+        ck.apply_vector3(Xa[:, :-1].contiguous(), *apply_args, parks)
+    with pytest.raises(ValueError):             # parks per lane, not design
+        ck.apply_vector3(Xa, *apply_args, torch.ones(B * 3 * K, device=dev))
+    with pytest.raises(ValueError):             # a plan for another grid
+        ck.apply_vector3(Xa[:-1].contiguous(), *apply_args[:-1],
+                         mask[:-1].contiguous(), parks)
+    gp_off = torch.cat([qs.gp.new_zeros(1), qs.gp.reshape(-1)])[1:]
+    with pytest.raises(ValueError):             # gradients not on 16 bytes
+        ck.apply_vector3(Xa, gs, gp_off.view(qs.gp.shape), *apply_args[2:],
+                         parks)
 
 
 def test_wrappers_take_scalar_operands_at_any_offset(setup, dev):
-    """Only the lane blocks that K2 and K3 load as vectors must start on
-    4 * gcd(L, 4) bytes: a mask, a K1 input or an L = 1 block that starts
-    4 bytes into its storage runs and matches the twins."""
+    """Only the lane blocks that K2 and K3 load as vectors (and K1's
+    gradients, loaded as float4) must start on 4 * gcd(L, 4) (16) bytes:
+    a mask, K1's other operands or an L = 1 block that starts 4 bytes
+    into its storage runs and matches the twins."""
     s = setup
     gs, ga, qs = s["gs"], s["ga"], s["qs"]
     E = gs.elem_dofs.shape[0]
@@ -431,11 +502,9 @@ def test_wrappers_take_scalar_operands_at_any_offset(setup, dev):
     N = tk.shape_table(dev)
     y = tk._apply_mass_fused(qs, gs, mask, X, 50.0)
     assert _rel(tk._apply_mass_fused_plain(qs, gs, mask, X, 50.0), y) <= 1e-5
-    elem = (gs.elem_dofs, offset(qs.gp), offset(qs.w), qs.inv_eps,
-            s["betas"], 1.0, N, K)
-    Xm = X * mask[:, None]
-    assert _rel(ck.apply_vector3_elem_plain(Xm, *elem),
-                ck.apply_vector3_elem(Xm, *elem)) <= 1e-5
+    _check_apply(qs._replace(w=offset(qs.w), inv_eps=offset(qs.inv_eps)),
+                 gs, mask, offset(s["betas"]), offset(X),
+                 offset(torch.full((B,), 3.0, device=dev)))
 
 
 # ---------------------------------------------------------------------------
@@ -493,21 +562,21 @@ def test_mass_apply_at_main_path_shapes(request, dev, mesh, b, k):
 @pytest.mark.parametrize("b,k", [(1, 20), (1, 66), (5, 20), (5, 66)])
 def test_kernels_at_dataset_shapes(r5, dev, b, k):
     """K1, K2 and K4 against their twins at the shapes the dataset engine
-    gives them (1e-5 of max|y|; K3 in test_mass_apply_at_main_path_shapes)."""
+    gives them (1e-5 of max|y|; K3 in test_mass_apply_at_main_path_shapes);
+    K1 one launch and bitwise repeatable."""
     ga, gs, invs = r5["ga"], r5["gs"], r5["invs"][:b]
     qs = tk.QFactorSweep(invJT=invs[0].invJT, w=invs[0].w,
                          inv_eps=torch.stack([q.inv_eps for q in invs]),
                          gp=ga.grad_phys)
     betas = torch.tensor(r5["betas"][:b], device=dev)
     D = ga.interior_mask.shape[0]
+    E = gs.elem_dofs.shape[0]
     L = b * 3 * k
     g = torch.Generator(device=dev).manual_seed(b * 100 + k)
     X = torch.randn((D, L), generator=g, device=dev)
-    Xm = X * ga.interior_mask[:, None]
-    N = tk.shape_table(dev)
-    elem = (gs.elem_dofs, qs.gp, qs.w, qs.inv_eps, betas, 1.0, N, k)
-    Ye = ck.apply_vector3_elem(Xm, *elem)
-    assert _rel(ck.apply_vector3_elem_plain(Xm, *elem), Ye) <= 1e-5
+    _check_apply(qs, gs, ga.interior_mask, betas, X,
+                 torch.full((b,), 50.0, device=dev))
+    Ye = torch.randn((E, 6, L), generator=g, device=dev)
     tables = (gs.idx_v, gs.valid_v, gs.idx_e, gs.valid_e)
     park = torch.full((L,), 50.0, device=dev)
     extra = (X, ga.interior_mask, park)
@@ -517,12 +586,14 @@ def test_kernels_at_dataset_shapes(r5, dev, b, k):
                  for _ in range(3))
     c = torch.linspace(100.0, 120.0, b, device=dev)
     h = torch.linspace(900.0, 1000.0, b, device=dev)
-    for renorm in (False, True):
-        V1, V2 = T1.clone(), T1.clone()
-        y = trk.cheb_step(W, V1, T0, c, h, renorm=renorm)
-        assert _rel(trk.cheb_step_plain(W, V2, T0, c, h, renorm=renorm),
-                    y) <= 1e-5
-        assert _rel(V2, V1) <= 1e-5
+    sv = torch.rand((b, k), generator=g, device=dev) + 0.5
+    for kw in ({"renorm": False}, {"renorm": True},
+               {"scale": sv, "scale_t0": sv}, {"scale_t0": sv}):
+        y, s = trk.cheb_step(W, T1, T0, c, h, **kw)
+        ref, rs = trk.cheb_step_plain(W, T1, T0, c, h, **kw)
+        assert _rel(ref, y) <= 1e-5
+        if s is not None:
+            assert _rel(rs, s) <= 1e-5
     torch.cuda.synchronize()
 
 
@@ -571,13 +642,13 @@ def test_triton_first_launch_from_two_threads(dev, monkeypatch):
                 for _ in range(3))
     c = torch.tensor([1.0, 2.0], device=dev)
     h = torch.tensor([4.0, 5.0], device=dev)
-    ref = trk.cheb_step_plain(W, V.clone(), T0, c, h, renorm=True)
+    ref, rs = trk.cheb_step_plain(W, V, T0, c, h, renorm=True)
     out = [None, None]
     start = threading.Barrier(2)
 
     def worker(i):
         start.wait(60)
-        out[i] = trk.cheb_step(W, V.clone(), T0, c, h, renorm=True)
+        out[i] = trk.cheb_step(W, V, T0, c, h, renorm=True)
         torch.cuda.synchronize()
 
     threads = [threading.Thread(target=worker, args=(i,)) for i in range(2)]
@@ -586,4 +657,5 @@ def test_triton_first_launch_from_two_threads(dev, monkeypatch):
     for t in threads:
         t.join(600)
     assert not any(t.is_alive() for t in threads)
-    assert all(_rel(ref, y) <= 1e-5 for y in out)
+    assert all(_rel(ref, y) <= 1e-5 and _rel(rs, s) <= 1e-5
+               for y, s in out)

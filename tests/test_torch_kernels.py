@@ -7,8 +7,9 @@ tests/test_torch_cuda.py.
 Tolerances:
 - single applies: <= 1e-5 of max|y| (f32, two orderings of the same
   sums);
-- the filter (12 recurrence steps, one renorm): <= 1e-4 of max|y|, the
-  step rounding amplified by the Chebyshev growth between renorms;
+- the filter (11 to 17 recurrence steps, one or two renorms): <= 1e-4 of
+  max|y|, the step rounding amplified by the Chebyshev growth between
+  renorms;
 - ``solve_lowest_sweep``: the wanted Ritz values theta (below the cut)
   to <= 1e-4 relative, from the same numpy start block.
 """
@@ -247,6 +248,73 @@ def test_mass_plan_reproduces_the_mass_apply(sw):
     assert _rel(ref.numpy(), y.numpy()) <= 1e-6
 
 
+def test_apply_plan_reproduces_the_apply(sw):
+    """The fused A(beta) kernel's sum through its plan, emulated in
+    float64: node i of element slot s of block b lands on the block's
+    entry dst[b, s, i]; every entry is written once, by an element node
+    of its own row, in the rows' transpose-table order; and the rows'
+    sums of the element results give the twin's m A(m X) + park (X - m X)
+    within 1e-6."""
+    from pl_fem_tpu_torch.ops import cuda_kernels as ck
+
+    ga = ta.grid_from_numpy(sw["dg"], "cpu")
+    plan = ta.apply_plan(ga)
+    assert plan is ta.gather_scatter(ga).apply_plan
+    R, D = plan.rows, sw["D"]
+    NB, HE = plan.elems.shape
+    assert NB == -(-D // R) and plan.row_ptr.shape == (NB * R + 1,)
+    assert plan.dst.dtype == torch.int16 and plan.dst.shape == (NB, HE, 6)
+    assert torch.equal(torch.sort(plan.order).values,
+                       torch.arange(D, dtype=torch.int32))
+    counts = (plan.row_ptr[1:] - plan.row_ptr[:-1]).long()
+    per_block = counts.view(NB, R).sum(1)
+    assert int(per_block.max()) == plan.max_entries
+    assert ta.apply_shared_bytes(R, HE, plan.max_entries) \
+        <= ta.APPLY_SHARED_LIMIT
+    # the entries in plan order, straight from the transpose tables
+    split, Wv = ga.dof_gather_v.shape
+    tab = torch.full((D, max(Wv, 2)), -1, dtype=torch.int64)
+    tab[:split, :Wv] = torch.where(ga.dof_gather_valid_v,
+                                   ga.dof_gather_v.long(), -1)
+    tab[split:, :2] = torch.where(ga.dof_gather_valid_e,
+                                  ga.dof_gather_e.long(), -1)
+    rows = tab[plan.order.long()]
+    expected = rows[rows >= 0]
+    assert torch.equal(counts[:D], (rows >= 0).sum(1))
+    # what the element slots write, at their global entry numbers
+    b, s, i = (plan.dst >= 0).nonzero(as_tuple=True)
+    e = plan.elems.long()[b, s]
+    assert bool((e >= 0).all()) and bool((s < plan.n_elems.long()[b]).all())
+    g = plan.row_ptr.long()[b * R] + plan.dst.long()[b, s, i]
+    assert torch.equal(torch.bincount(g, minlength=expected.numel()),
+                       torch.ones_like(expected))
+    written = torch.empty_like(expected)
+    written[g] = e * 6 + i
+    assert torch.equal(written, expected)
+    assert plan.recompute >= 1.0
+    # the sums in f64
+    dt = torch.float64
+    qs = sw["tqs"]
+    X = torch.as_tensor(sw["X"].reshape(D, -1), dtype=dt)
+    m = torch.as_tensor(sw["mask"], dtype=dt)
+    parks = torch.as_tensor(sw["parks"], dtype=dt)
+    Ye = ck.apply_vector3_elem_plain(
+        X * m[:, None], ga.elem_dofs, qs.gp.to(dt), qs.w.to(dt),
+        qs.inv_eps.to(dt), torch.as_tensor(sw["betas"], dtype=dt), 1.0,
+        tk.shape_table("cpu").to(dt), K)
+    pos = torch.repeat_interleave(torch.arange(NB * R), counts)
+    Y = torch.zeros((NB * R, X.shape[1]), dtype=dt)
+    Y.index_add_(0, pos[g], Ye[e, i])
+    Yd = torch.zeros_like(X)
+    Yd[plan.order.long()] = Y[:D]
+    pk = parks.repeat_interleave(3 * K)
+    y = Yd * m[:, None] + pk * (X - X * m[:, None])
+    ref = tk._apply_vector3_fused(qs, sw["tgs"], _t(sw["mask"]),
+                                  _t(sw["parks"]), _t(sw["betas"]), 1.0,
+                                  _t(sw["X"]))
+    assert _rel(ref.numpy().reshape(D, -1), y.numpy()) <= 1e-6
+
+
 @pytest.mark.parametrize("binv", [0, 1])
 def test_cheb_filter_matches_jax_chunk(sw, binv):
     """T1 = T(X), then 11 recurrence steps with the K4 twin (renorm at
@@ -268,24 +336,58 @@ def test_cheb_filter_matches_jax_chunk(sw, binv):
     assert _rel(ref, y.numpy()) <= 1e-4
 
 
+@pytest.mark.parametrize("steps", [17, 18])
+def test_deferred_renorm_matches_jax_chunk(sw, steps):
+    """T1 = T(X), then 16 or 17 recurrence steps with the K4 twin: renorms
+    at recurrence steps 8 and 16 deferred into the steps after them,
+    the last step a renorm (its scale applied at the end) or the step
+    right after one == cheb_sweep_chunk_impl(first=True), whose renorm
+    rescales in place."""
+    dinv = (1.0 / np.sqrt(np.maximum(sw["diag"], 1e-30))).astype(np.float32)
+    lo, hi = np.float32(jk.MASS_LO), np.float32(jk.MASS_HI)
+    X = jnp.asarray(sw["X"])
+    _, ref = jk.cheb_sweep_chunk_impl(
+        sw["jqs"], sw["jgs"], sw["jga"].interior_mask, jnp.asarray(dinv),
+        jnp.float32(lo), jnp.float32(hi), jnp.asarray(sw["parks"]),
+        jnp.asarray(sw["betas"]), jnp.float32(1.0), X, X,
+        jnp.asarray(sw["cuts"]), jnp.asarray(sw["bounds"]),
+        np.int32(steps), np.bool_(True), binv_degree=0)
+    y = tk.cheb_sweep_filter(
+        sw["tqs"], sw["tgs"], _t(sw["mask"]), _t(dinv), lo, hi,
+        _t(sw["parks"]), _t(sw["betas"]), 1.0, _t(sw["X"]), _t(sw["cuts"]),
+        _t(sw["bounds"]), degree=steps, binv_degree=0)
+    assert _rel(ref, y.numpy()) <= 1e-4
+
+
 def test_cheb_step_twin_formula():
     """K4 twin: T2 = 2 (W - c V) / h - T0, the opening step (W - c V) / h,
-    and the renorm that rescales V in place to unit (D, 3) column norms."""
+    the pending scales of V (on 2 T(V)) and of T0, and the renorm: T2
+    returned unscaled with s = 1 / ||T2||_(D, 3) per (design, column),
+    nothing updated in place."""
     rng = np.random.default_rng(7)
     W, V, T0 = (torch.as_tensor(rng.standard_normal((11, 2, 3, 4))
                                 .astype(np.float32)) for _ in range(3))
     c = torch.tensor([1.5, -2.0])
     h = torch.tensor([3.0, 0.5])
     cb, hb = c[None, :, None, None], h[None, :, None, None]
-    first = trk.cheb_step(W, V, None, c, h)
-    assert torch.allclose(first, (W - cb * V) / hb)
-    step = trk.cheb_step(W, V, T0, c, h)
+    first, s = trk.cheb_step(W, V, None, c, h)
+    assert s is None and torch.allclose(first, (W - cb * V) / hb)
+    step, s = trk.cheb_step(W, V, T0, c, h)
+    assert s is None
     assert torch.allclose(step, 2.0 * (W - cb * V) / hb - T0)
+    sv, s0 = (torch.as_tensor(rng.uniform(0.5, 2.0, (2, 4))
+                              .astype(np.float32)) for _ in range(2))
+    scaled, _ = trk.cheb_step(W, V, T0, c, h, scale=sv, scale_t0=s0)
+    assert torch.allclose(scaled, sv[None, :, None, :] * 2.0 * (W - cb * V)
+                          / hb - s0[None, :, None, :] * T0)
     V2 = V.clone()
-    ren = trk.cheb_step(W, V2, T0, c, h, renorm=True)
-    s = ren.norm(dim=(0, 2), keepdim=True)
-    assert torch.allclose(s, torch.ones_like(s), atol=1e-6)
-    assert torch.allclose(V2 / V, ren / step, rtol=1e-5)
+    ren, s = trk.cheb_step(W, V2, T0, c, h, renorm=True)
+    assert torch.equal(ren, step) and torch.equal(V2, V)
+    assert s.shape == (2, 4)
+    n = (ren * s[None, :, None, :]).norm(dim=(0, 2))
+    assert torch.allclose(n, torch.ones_like(n), atol=1e-6)
+    with pytest.raises(ValueError):     # s would be pending on sv * V
+        trk.cheb_step(W, V, T0, c, h, renorm=True, scale=sv)
 
 
 def test_solve_lowest_sweep_matches_jax(sw):

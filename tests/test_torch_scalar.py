@@ -248,20 +248,25 @@ def test_pencil_bounds_match_jax(pencils, C):
 
 def test_cheb_step_twin_single_component():
     """K4's twin on a (D, 1, 1, k) block: the scalar recurrence step and
-    its renorm over all rows (pl_fem_tpu/ops/kernels.py:1199-1205)."""
+    its renorm scale over all rows (pl_fem_tpu/ops/kernels.py:1199-1205),
+    which the step after it applies as it reads its inputs."""
     rng = np.random.default_rng(2)
-    W, V, T0 = (rng.standard_normal((300, 1, 1, K)).astype(np.float32)
-                for _ in range(3))
+    W, V, T0, W3 = (rng.standard_normal((300, 1, 1, K)).astype(np.float32)
+                    for _ in range(4))
     c, h = np.float32(3.0), np.float32(40.0)
     T2 = 2.0 * (W - c * V) / h - T0
     s = 1.0 / (np.linalg.norm(T2.reshape(300, K), axis=0) + 1e-30)
     Vt = _t(V)
-    y = trk.cheb_step(_t(W), Vt, _t(T0), torch.tensor([c]),
-                      torch.tensor([h]), renorm=True)
-    assert _rel(T2 * s, y.numpy()) <= 1e-6
-    assert _rel(V * s, Vt.numpy()) <= 1e-6        # rescaled in place
-    y = trk.cheb_step(_t(W), _t(V), None, torch.tensor([c]),
-                      torch.tensor([h]))
+    ct, ht = torch.tensor([c]), torch.tensor([h])
+    y, st = trk.cheb_step(_t(W), Vt, _t(T0), ct, ht, renorm=True)
+    assert _rel(T2, y.numpy()) <= 1e-6             # written unscaled
+    assert _rel(s, st.numpy()[0]) <= 1e-6
+    assert np.array_equal(V, Vt.numpy())           # not rescaled in place
+    # the next step on the rescaled pair (s V, s T2), with W3 = W(T2)
+    T3 = 2.0 * (s * W3 - c * s * T2) / h - s * V
+    y3, _ = trk.cheb_step(_t(W3), y, Vt, ct, ht, scale=st, scale_t0=st)
+    assert _rel(T3, y3.numpy()) <= 1e-6
+    y, _ = trk.cheb_step(_t(W), _t(V), None, ct, ht)
     assert _rel((W - c * V) / h, y.numpy()) <= 1e-6
 
 
