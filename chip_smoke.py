@@ -34,7 +34,11 @@ In order:
    blocks, there also against K1; K6 (permittivity: eps_re equal,
    eps_im to 1e-6); K7 (scalar blocks); K8 (spectrum bound, C = 1 and
    3, also >= its f64 value less 1e-4 relative); K4 on a (D, 1, 1, k)
-   block; K2 and K3 at L = k;
+   block; K2 and K3 at L = k. K5 is the whole stacked apply (mask,
+   element product, accumulate, park) in one launch on K1's plan: it
+   must take one launch and repeat bit for bit, it is timed beside a
+   cuSPARSE SpMM of the assembled m A m + park (I - m), and its host
+   time per call (no sync) is printed;
 4. runs the main path twice, warm-up then timed:
    ``TrueVectorialMaxwellSolver.solve_sweep`` over 8 wavelengths
    1.50-1.64 um in fast mode (cheb_degree 200, cheb_passes 2,
@@ -45,7 +49,9 @@ In order:
 5. solves a single-core step fiber (r 1.5 um, n_core 1.53, air clad)
    through the same path and holds HE11's n_eff to the exact vector
    dispersion (ops/analytic.vector_modes) within 1e-3 relative, the
-   fast-mode accuracy class;
+   fast-mode accuracy class; then solves it with the balanced and the
+   accuracy presets (``config.solver_preset``, B = 1), each within the
+   same 1e-3, and prints their seconds;
 6. runs the dataset engine through the port's CLI at the production
    settings of configs/r5_dataset.yaml (fast mode, 9000-18000 mesh
    points, bucket band 0.20, sweep engine with the 2-bucket pipeline,
@@ -64,13 +70,16 @@ In order:
    on the production mesh with ``ScalarHelmholtzSolver`` (10 modes, fast
    preset), device backend then hybrid (host ARPACK) backend; the two
    n_eff lists must agree to 5e-5, the kernels K2-K8 must launch in the
-   device solve, and the single-core fiber's LP01 must match the exact
-   LP dispersion (ops/analytic.lp_modes) within 1e-4 relative;
+   device solve (K5 once per A apply: per K4 step and per Rayleigh-Ritz
+   pass; K2 only on the mass diagonal), and the single-core fiber's LP01
+   must match the exact LP dispersion (ops/analytic.lp_modes) within
+   1e-4 relative;
 8. runs the scalar dataset engine through the CLI (``--scalar
    --cmt-slices 5`` at configs/r5_dataset.yaml) on 4 of the config's 220
    samples (the one cut): every validated sample must be a
    ``scalar_cascade`` record, at least one must succeed with finite
-   losses, K2-K8 must launch, and a second run must solve nothing.
+   losses, K2-K8 must launch (K5 once per A apply, K2 only at L = 1),
+   and a second run must solve nothing.
 
 The config-1 and r5 workloads are defined in
 ``pl_fem_tpu_torch/workloads.py``. It prints the per-kernel JSON line,
@@ -186,6 +195,40 @@ def _mass_csr(gs, w, N, mask, park):
     return M.to_sparse_csr()
 
 
+def _stacked_csr(elem_dofs, A, mask, park, C):
+    """The assembled f32 CSR of m A m + park (I - m) on the stacked
+    (C D) rows from the (E, 6C, 6C) blocks: the SpMM yardstick beside K5
+    (the port never calls it)."""
+    import torch
+
+    D = mask.shape[0]
+    ed = torch.cat([elem_dofs.long() + c * D for c in range(C)], dim=1)
+    m = mask.repeat(C)
+    rows = ed[:, :, None].expand_as(A).reshape(-1)
+    cols = ed[:, None, :].expand_as(A).reshape(-1)
+    vals = (A * m[ed][:, :, None] * m[ed][:, None, :]).reshape(-1)
+    diag = torch.arange(C * D, device=mask.device)
+    M = torch.sparse_coo_tensor(
+        torch.stack([torch.cat([rows, diag]), torch.cat([cols, diag])]),
+        torch.cat([vals, park * (1.0 - m)]), (C * D, C * D)).coalesce()
+    return M.to_sparse_csr()
+
+
+def _host_ms(fn, reps: int = 200) -> float:
+    """Host milliseconds per call of ``fn`` without a synchronise: the
+    wrapper's checks and the launch (the device runs behind)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return host
+
+
 def _scatter_csr(gs, E):
     """The 0/1 element -> DOF CSR (D x 6E) of the transpose tables: the
     SpMM yardstick beside K2 without its epilogue."""
@@ -207,45 +250,58 @@ def _scatter_csr(gs, E):
 
 @contextlib.contextmanager
 def _watch_sweep():
-    """While active, count the vectorial Rayleigh-Ritz passes
-    (``kernels.cheb_sweep_rr_impl``, one A(beta) apply each) and record
+    """While active, count the Rayleigh-Ritz passes, vectorial
+    (``kernels.cheb_sweep_rr_impl``, one A(beta) apply each) and stacked
+    (``kernels.cheb_rr_pass_impl``, one stacked apply each), and record
     the lane count of every K2 launch made through ``kernels``: the
     port's own functions, wrapped (two sweep threads may call them)."""
     from pl_fem_tpu_torch.ops import kernels as tkn
 
-    seen = {"rr_passes": 0, "k2_lanes": set()}
+    seen = {"rr_passes": 0, "stacked_passes": 0, "k2_lanes": set()}
     lock = threading.Lock()
-    rr, acc = tkn.cheb_sweep_rr_impl, tkn.accumulate
+    rr, srr = tkn.cheb_sweep_rr_impl, tkn.cheb_rr_pass_impl
+    acc = tkn.accumulate
 
-    def rr_counted(*args, **kw):
-        with lock:
-            seen["rr_passes"] += 1
-        return rr(*args, **kw)
+    def counted(fn, key):
+        def wrapped(*args, **kw):
+            with lock:
+                seen[key] += 1
+            return fn(*args, **kw)
+        return wrapped
 
     def acc_seen(Ye, *args, **kw):
         with lock:
             seen["k2_lanes"].add(Ye.shape[-1])
         return acc(Ye, *args, **kw)
 
-    tkn.cheb_sweep_rr_impl, tkn.accumulate = rr_counted, acc_seen
+    tkn.cheb_sweep_rr_impl = counted(rr, "rr_passes")
+    tkn.cheb_rr_pass_impl = counted(srr, "stacked_passes")
+    tkn.accumulate = acc_seen
     try:
         yield seen
     finally:
-        tkn.cheb_sweep_rr_impl, tkn.accumulate = rr, acc
+        tkn.cheb_sweep_rr_impl, tkn.cheb_rr_pass_impl = rr, srr
+        tkn.accumulate = acc
 
 
 def _check_apply_launches(what, launches, seen):
-    """K1 launches once per A(beta) apply: one per filter step (each
-    followed by one K4 step) and one per Rayleigh-Ritz pass; K2 only
-    sums the mass diagonal (L = 1), never per filter step."""
-    n1, n4, rr = (launches["apply_vector3"], launches["cheb_step"],
-                  seen["rr_passes"])
-    print(f"{what}: K1 launches {n1} = K4 steps {n4} + Rayleigh-Ritz passes "
-          f"{rr}; K2 launches {launches['accumulate']} at lane counts "
+    """Every K4 step follows one A apply, and every Rayleigh-Ritz pass
+    makes one: K1 (the vectorial sweeps) and K5 (the stacked filter)
+    launch once per apply, K1 + K5 = K4 steps + passes; K2 only sums the
+    mass diagonal (L = 1), never per filter step."""
+    n1, n5, n4 = (launches["apply_vector3"], launches["apply_stacked"],
+                  launches["cheb_step"])
+    rr, srr = seen["rr_passes"], seen["stacked_passes"]
+    print(f"{what}: K1 launches {n1} + K5 launches {n5} = K4 steps {n4} + "
+          f"Rayleigh-Ritz passes {rr} (vectorial) + {srr} (stacked); K2 "
+          f"launches {launches['accumulate']} at lane counts "
           f"{sorted(seen['k2_lanes'])}", flush=True)
-    if n1 != n4 + rr:
-        raise AssertionError(f"{what}: K1 did not launch once per A(beta) "
+    if n1 + n5 != n4 + rr + srr:
+        raise AssertionError(f"{what}: K1 / K5 did not launch once per A "
                              f"apply")
+    if (n1 > 0) != (rr > 0) or (n5 > 0) != (srr > 0):
+        raise AssertionError(f"{what}: an apply kernel launched without "
+                             f"its path, or a path without its kernel")
     if seen["k2_lanes"] - {1}:
         raise AssertionError(f"{what}: K2 launched on lane blocks (the "
                              f"filter's), not only on the mass diagonal")
@@ -573,27 +629,52 @@ def _scalar_kernel_checks(dg, geom, k, dev):
         else:
             res["pencil_bounds"]["c3"] = row
 
-    # K5 at C = 1 (the scalar pencil) and C = 3 (the vectorial blocks),
-    # with torch.bmm on the gathered rows as the product's yardstick
+    # K5, the whole stacked apply, at C = 1 (the scalar pencil) and C = 3
+    # (the vectorial blocks), with one cuSPARSE SpMM of the assembled
+    # m A m + park (I - m) as its yardstick
     mask1, mask3 = ga.dof_valid, ga.interior_mask
+    plan = gs.apply_plan
+    NB, HE = plan.elems.shape
+    # the plan's tables (order, entry offsets, halo elements and their
+    # counts, entry slots, the slots' DOFs): read once
+    plan_bytes = (4 * D + 4 * (NB * plan.rows + 1) + 4 * NB * HE + 4 * NB
+                  + (2 + 4) * 6 * NB * HE)
+    print(f"  K5 plan: {plan.rows} rows per block, {plan.recompute:.3f} "
+          f"element evaluations per element, at most {plan.max_entries} "
+          f"entries and {HE} elements per block; tables {plan_bytes} bytes",
+          flush=True)
     for C, Ab, mask in ((1, A, mask1), (3, A3, mask3)):
         R = 6 * C
         X = torch.randn((C * D, k), generator=gen, device=dev)
-        ed = torch.cat([gs.elem_dofs.long() + c * D for c in range(C)],
-                       dim=1)
-        G = (X * mask.repeat(C)[:, None])[ed]               # (E, 6C, k)
+        park = torch.full((k,), 50.0, device=dev)
+        args = (X, gs, Ab, mask, park, C)
+        n0 = ck.apply_stacked.launches
+        y = ck.apply_stacked(*args)
+        if ck.apply_stacked.launches != n0 + 1:
+            raise AssertionError("K5 took more than one launch for one apply")
+        if not torch.equal(y, ck.apply_stacked(*args)):
+            raise AssertionError(f"K5 (C = {C}) is not bitwise repeatable")
+        S = _stacked_csr(gs.elem_dofs, Ab, mask, 50.0, C)
+        spmm_err = float((torch.sparse.mm(S, X) - ck.apply_stacked_plain(
+            *args)).abs().max())
+        print(f"  SpMM yardstick of K5 (C = {C}): {S._nnz()} nonzeros, "
+              f"max|SpMM - twin| = {spmm_err:.3e}", flush=True)
         row = _compare(
-            f"K5 apply_stacked_elem (C = {C})",
-            lambda: ck.apply_stacked_elem(X, mask, gs.elem_dofs, Ab, C),
-            lambda: ck.apply_stacked_elem_plain(X, mask, gs.elem_dofs, Ab, C),
-            (4 * (R * R * E + C * D * k + R * E * k) + 4 * 6 * E + 4 * D,
+            f"K5 apply_stacked (C = {C}: mask, element product, "
+            f"accumulate, park)",
+            lambda: ck.apply_stacked(*args),
+            lambda: ck.apply_stacked_plain(*args),
+            (4 * (R * R * E + 2 * C * D * k + D + k) + plan_bytes,
              2 * R * R * E * k),
-            lambda: torch.bmm(Ab, G))
-        del G
+            lambda: torch.sparse.mm(S, X))
+        del S
+        row["host_ms"] = _host_ms(lambda: ck.apply_stacked(*args))
+        print(f"  K5 (C = {C}) host time per call, no sync: "
+              f"{row['host_ms']:.4f} ms", flush=True)
         if C == 1:
-            res["apply_stacked_elem"] = row
+            res["apply_stacked"] = row
         else:
-            res["apply_stacked_elem"]["c3"] = row
+            res["apply_stacked"]["c3"] = row
             # the assembled-block apply against the matrix-free one
             qf, _ = ta.assemble_vector3_qf(ga, ea)
             qs = tkn.QFactorSweep(invJT=qf.invJT, w=qf.w,
@@ -605,7 +686,7 @@ def _scalar_kernel_checks(dg, geom, k, dev):
                 tkn._fused_from_stacked(X[:, None, :])))[:, 0]
             err = float((y - ref).abs().max())
             scale = float(ref.abs().max())
-            print(f"  K5 + K2 (C = 3) vs K1: max_abs_err={err:.3e} "
+            print(f"  K5 (C = 3) vs K1: max_abs_err={err:.3e} "
                   f"(max|y|={scale:.3e}, limit {KERNEL_RTOL:g} of max|y|)",
                   flush=True)
             if not err <= KERNEL_RTOL * scale:
@@ -618,7 +699,9 @@ def _scalar_kernel_checks(dg, geom, k, dev):
     blk = 4 * D * k
     tab = 5 * (split * Wv + 2 * (D - split))
     mtab = tab + 4 * E * 6 + 4 * E * Q + 4 * Q * 6 + 4 * D + 4 * D
-    Ye = ck.apply_stacked_elem(X, mask1, gs.elem_dofs, A, 1)[0]
+    # K2 has left the scalar filter (K5 sums its own rows); at L = k it is
+    # checked on the twin's element results, as a kernel of the repo
+    Ye = ck.apply_stacked_elem_plain(X, mask1, gs.elem_dofs, A, 1)[0]
     park = torch.full((k,), 1.0, device=dev)
     tables = (gs.idx_v, gs.valid_v, gs.idx_e, gs.valid_e)
     res["accumulate"] = _compare(
@@ -667,6 +750,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from pl_fem_tpu_torch import cli
     from pl_fem_tpu_torch import workloads as wl
+    from pl_fem_tpu_torch.config import solver_preset
     from pl_fem_tpu_torch.models import MCFGeometry
     from pl_fem_tpu_torch.ops import cuda_kernels as ck
     from pl_fem_tpu_torch.ops import triton_kernels as tk
@@ -705,13 +789,13 @@ def main() -> int:
                 "accumulate": ck.accumulate,
                 "mass_apply": ck.mass_apply,
                 "cheb_step": tk.cheb_step,
-                "apply_stacked_elem": ck.apply_stacked_elem,
+                "apply_stacked": ck.apply_stacked,
                 "eps_at_quadrature": tk.eps_at_quadrature,
                 "scalar_blocks": ck.scalar_blocks,
                 "pencil_bounds": ck.pencil_bounds}
     # the vectorial paths run K1-K4, K6 and K8; the scalar paths K2-K8
     on_vector = [n for n in wrappers
-                 if n not in ("apply_stacked_elem", "scalar_blocks")]
+                 if n not in ("apply_stacked", "scalar_blocks")]
     on_scalar = [n for n in wrappers if n != "apply_vector3"]
 
     def reset_counts():
@@ -766,8 +850,8 @@ def main() -> int:
     fcfg = dataclasses.replace(cfg, mesh_min_points=FIBER_MESH_MIN,
                                mesh_target_points=FIBER_MESH_MIN)
     fgrid = MeshGenerator.generate(fiber, FIBER_REFINE, fcfg)
-    fmodes = Solver.solve_sweep([fiber], export_device_grid(fgrid, 1024),
-                                8, fcfg)[0]
+    fdg = export_device_grid(fgrid, 1024)
+    fmodes = Solver.solve_sweep([fiber], fdg, 8, fcfg)[0]
     # HE11 is the first hybrid root of order 1, labelled "HY1,1"
     he11 = dict(vector_modes(1.55, 1.5, 1.53, 1.0))["HY1,1"]
     if not fmodes:
@@ -778,6 +862,23 @@ def main() -> int:
           flush=True)
     if not rel <= FIBER_RTOL:
         raise AssertionError(f"fiber HE11 rel err {rel:.2e} > {FIBER_RTOL}")
+    for preset in ("balanced", "accuracy"):
+        pcfg = dataclasses.replace(fcfg, solver=solver_preset(
+            preset, device="cuda"))
+        t0 = time.perf_counter()
+        pmodes = Solver.solve_sweep([fiber], fdg, 8, pcfg)[0]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if not pmodes:
+            raise AssertionError(f"{preset} preset: the fiber returned no "
+                                 f"modes")
+        rel = abs(pmodes[0]["n_eff"] - he11) / he11
+        print(f"fiber, {preset} preset: {dt:.2f} s, HE11 n_eff "
+              f"{pmodes[0]['n_eff']:.7f} vs exact {he11:.7f}, rel err "
+              f"{rel:.2e} (limit {FIBER_RTOL:g})", flush=True)
+        if not rel <= FIBER_RTOL:
+            raise AssertionError(f"fiber HE11 ({preset} preset) rel err "
+                                 f"{rel:.2e} > {FIBER_RTOL}")
 
     # -- 6. the dataset engine through the CLI at the r5 settings -------
     launches_sweep = launches
@@ -868,8 +969,9 @@ def main() -> int:
     reset_counts()
     ssolver = ScalarHelmholtzSolver(sgeom, cfg)
     t0 = time.perf_counter()
-    smodes = ssolver.solve(dg, wl.N_MODES)
-    torch.cuda.synchronize()
+    with _watch_sweep() as seen:
+        smodes = ssolver.solve(dg, wl.N_MODES)
+        torch.cuda.synchronize()
     dt_dev = time.perf_counter() - t0
     launches_scalar = read_counts()
     print("scalar solve phases (s): " + json.dumps(
@@ -888,6 +990,7 @@ def main() -> int:
                                  f"scalar solve")
     if launches_scalar["apply_vector3"]:
         raise AssertionError("the scalar solve launched K1")
+    _check_apply_launches("the scalar solve", launches_scalar, seen)
     hcfg = dataclasses.replace(cfg, solver=dataclasses.replace(
         cfg.solver, backend="hybrid"))
     reset_counts()
@@ -921,7 +1024,7 @@ def main() -> int:
                 and m["field_vector"].shape == (grid.n_dofs,)):
             raise AssertionError("bad scalar mode")
     fsm = ScalarHelmholtzSolver(fiber, fcfg).solve(
-        export_device_grid(fgrid, 1024), 8)
+        fdg, 8)
     lp01 = max(ne for _, _, ne in lp_modes(fiber.V_number, fiber.n_core,
                                             fiber.n_clad))
     if not fsm:
@@ -939,8 +1042,9 @@ def main() -> int:
     argv = wl.scalar_dataset_argv(out_dir)
     reset_counts()
     t0 = time.perf_counter()
-    sgen, srecords = cli.run(argv)
-    torch.cuda.synchronize()
+    with _watch_sweep() as seen:
+        sgen, srecords = cli.run(argv)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches_sds = read_counts()
     lines = (out_dir / "records.jsonl").read_text().splitlines()
@@ -973,6 +1077,7 @@ def main() -> int:
         if launches_sds[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by the "
                                  f"scalar dataset engine")
+    _check_apply_launches("the scalar dataset run", launches_sds, seen)
     sgood = [r for r in srecords if r.success and _finite(
         r.IL_phys_mux_dB, r.MDL_phys_mux_dB, r.crosstalk_mux_dB,
         r.IL_phys_demux_dB, r.n_eff_max)]
@@ -1008,8 +1113,9 @@ def main() -> int:
                        "pl_fem_tpu/ops/kernels.py:640"),
         "cheb_step": ("triton", src + "triton_kernels.py",
                       "pl_fem_tpu/ops/kernels.py:702"),
-        "apply_stacked_elem": ("cuda", src + "csrc/apply_stacked.cu",
-                               "pl_fem_tpu/ops/kernels.py:74"),
+        "apply_stacked": ("cuda", src + "csrc/apply_stacked.cu",
+                          "pl_fem_tpu/ops/kernels.py:74, "
+                          "pl_fem_tpu/ops/kernels.py:53"),
         "eps_at_quadrature": ("triton", src + "triton_kernels.py",
                               "pl_fem_tpu/ops/assembly.py:126"),
         "scalar_blocks": ("cuda", src + "csrc/scalar_blocks.cu",

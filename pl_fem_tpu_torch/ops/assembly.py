@@ -129,16 +129,19 @@ class MassPlan(NamedTuple):
 
 
 class ApplyPlan(NamedTuple):
-    """The A(beta) apply kernel's per-grid plan (``apply_plan``).
+    """The per-grid plan (``apply_plan``) of the two row-owned applies,
+    K1 (the A(beta) apply) and K5 (the stacked-block apply).
 
     Block b owns the rows ``order[b*R:(b+1)*R]`` and their transpose-
     table entries, numbered per block in row order and, within a row, in
     table order (``row_ptr``). It evaluates every element with an entry
     among them (its element halo, ``elems``) and keeps only the entries
     it owns: node i of element slot s is the block's entry ``dst[b, s,
-    i]``, or -1 where dof(e, i) is another block's row. Elements on
-    block borders are evaluated by every block they touch:
-    ``recompute`` element evaluations per element.
+    i]``, or -1 where dof(e, i) is another block's row, and its DOF is
+    ``dofs[b, s, i]`` (the element table read through the slots, so a
+    block's lookups depend on no other load). Elements on block borders
+    are evaluated by every block they touch: ``recompute`` element
+    evaluations per element.
     """
 
     rows: int                # R, rows per block
@@ -147,6 +150,7 @@ class ApplyPlan(NamedTuple):
     elems: torch.Tensor      # (NB, HE) int32 the block's elements, -1 pad
     n_elems: torch.Tensor    # (NB,) int32
     dst: torch.Tensor        # (NB, HE, 6) int16 block entry of node i, or -1
+    dofs: torch.Tensor       # (NB, HE, 6) int32 dof(e, i) of slot s
     max_entries: int         # the most entries one block holds
     recompute: float         # element evaluations per element
 
@@ -273,18 +277,24 @@ APPLY_SHARED_LIMIT = 226 * 1024   # of a block's 227 KB, less static use
 
 
 def apply_shared_bytes(R: int, HE: int, max_entries: int) -> int:
-    """Dynamic shared memory of one block of the apply kernel (the count
-    of ``shared_bytes`` in csrc/apply_vector3.cu): the entries' and the
-    owned rows' lanes of a 16-pair chunk, the owned rows' masks, entry
-    offsets and ids, and each element's id, DOFs, masks and entry
-    slots."""
+    """Dynamic shared memory of one block of the A(beta) apply kernel
+    (the count of ``shared_bytes`` in csrc/apply_vector3.cu): the
+    entries' and the owned rows' lanes of a 16-pair chunk, the owned
+    rows' masks, entry offsets and ids, and each element's id, DOFs,
+    masks and entry slots.
+
+    The stacked apply (csrc/apply_stacked.cu) keeps at most 48 floats
+    per entry too (a lane chunk of min(k, 48 / C) columns for C
+    components) but no owned-row lanes, so on a plan that fits here it
+    has 4 * 48 * R bytes or more left for the element blocks it stages
+    (in batches where they do not all fit)."""
     return (4 * 48 * (max_entries + R) + 4 * R + 4 * (2 * R + 1)
             + 4 * 7 * HE + 4 * 6 * HE + 2 * 6 * HE)
 
 
 def apply_plan(ga: GridArrays) -> ApplyPlan:
-    """The A(beta) apply kernel's plan for the grid of ``ga``, built once
-    per device grid (cached on its ``dof_coords`` tensor).
+    """The row-owned applies' plan (K1 and K5) for the grid of ``ga``,
+    built once per device grid (cached on its ``dof_coords`` tensor).
 
     Rows go in ``dof_row_order`` blocks of APPLY_ROWS, halved until a
     block's shared memory (``apply_shared_bytes``) fits. Larger blocks
@@ -325,6 +335,8 @@ def _apply_plan(ga: GridArrays, R: int) -> ApplyPlan:
                      elems=elems.to(torch.int32).contiguous(),
                      n_elems=n_elems.to(torch.int32),
                      dst=dst.to(torch.int16).contiguous(),
+                     dofs=ga.elem_dofs[elems.clamp(min=0)].to(torch.int32)
+                     .contiguous(),
                      max_entries=max(int(per_block.max()), 1),
                      recompute=float(n_elems.sum()) / max(n_distinct, 1))
 

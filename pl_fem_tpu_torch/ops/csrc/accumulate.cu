@@ -3,9 +3,10 @@
 //
 // Replaces the gather branch of pl_fem_tpu/ops/kernels.py
 // _accumulate_fused and the epilogue Y * m + park * (X - X * m) of
-// _apply_vector3_fused. Its callers are the A(beta) apply (after K1)
-// and the mass diagonal (L = 1); the mass apply has its own fused
-// kernel (mass_apply.cu).
+// _apply_vector3_fused. On the solver paths it sums the mass diagonal
+// (L = 1): the A(beta) apply (apply_vector3.cu), the stacked apply
+// (apply_stacked.cu) and the mass apply (mass_apply.cu) sum their own
+// rows in the same table order.
 //
 // Ye is (E * 6, L); DOF rows [0, split) sum up to Wv entries of idx_v,
 // rows [split, D) up to 2 entries of idx_e (P2 edge midpoints). Every

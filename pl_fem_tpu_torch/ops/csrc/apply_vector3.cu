@@ -277,9 +277,13 @@ template <int THREADS>
 cudaError_t launch(const ApplyArgs& p, cudaStream_t stream)
 {
     const size_t shmem = shared_bytes(p.R, p.HE, p.max_ent);
+    // the same value at every launch: two threads (the dataset engine's
+    // bucket pipeline) launch at once, and a size set per launch by one
+    // could fall under the other's request before it launches, which
+    // then fails as "too many resources requested for launch"
     const cudaError_t err = cudaFuncSetAttribute(
         apply_vector3_kernel<THREADS>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxShared);
     if (err != cudaSuccess) return err;
     // the chunks of a row block vary fastest: the blocks in flight share
     // their rows' cache lines, which L2 then reads and writes whole

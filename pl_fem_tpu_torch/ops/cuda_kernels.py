@@ -2,8 +2,9 @@
 K1 the packed A(beta_b) apply with its mask and park (element math and
 accumulate in one kernel), K2 the element -> DOF accumulate, K3 the
 fused DOF-centric mass apply (plain, or one step of the B^{-1}
-semi-iteration), K5 the element part of the stacked-block apply, K7 the
-scalar pencil's element blocks, K8 the pencil's spectrum bound.
+semi-iteration), K5 the stacked-block apply with its mask and park
+(element product and accumulate in one kernel), K7 the scalar pencil's
+element blocks, K8 the pencil's spectrum bound.
 
 The sources are ``ops/csrc/*.cu``. At first use on a CUDA tensor they
 are compiled with ``nvcc`` for ``sm_90a`` (one compiler process per
@@ -56,7 +57,7 @@ _SIGNATURES = {
     "pl_accumulate": [_P, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _P, _P],
     "pl_mass_apply": [_P] * 14 + [_F] * 4 + [_I] * 6 + [_P],
-    "pl_apply_stacked": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "pl_apply_stacked": [_P] * 10 + [_I] * 6 + [_P, _P],
     "pl_scalar_blocks": [_P, _P, _P, _P, _F, _I, _I, _P, _P, _P],
     "pl_pencil_bounds_blocks": [_I, _I],
     "pl_pencil_bounds": [_P, _P, _P, _P, _F, _F, _I, _I, _P, _P, _P],
@@ -501,13 +502,13 @@ mass_apply.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K5: element part of the stacked-block apply
+# K5: the stacked-block apply
 # ---------------------------------------------------------------------------
 
 def apply_stacked_elem_plain(X, mask, elem_dofs, Abig, C: int):
-    """Plain twin of K5: gather the masked rows and multiply by the
-    element blocks, as pl_fem_tpu/ops/kernels.py ``_apply_stacked`` does
-    before its accumulate. Returns (C, E, 6, k)."""
+    """Element part of K5's twin: gather the masked rows and multiply by
+    the element blocks, as pl_fem_tpu/ops/kernels.py ``_apply_stacked``
+    does before its accumulate. Returns (C, E, 6, k)."""
     D = mask.shape[0]
     E = elem_dofs.shape[0]
     k = X.shape[1]
@@ -517,38 +518,65 @@ def apply_stacked_elem_plain(X, mask, elem_dofs, Abig, C: int):
     return Ye.reshape(E, C, 6, k).permute(1, 0, 2, 3).contiguous()
 
 
-def apply_stacked_elem(X, mask, elem_dofs, Abig, C: int):
-    """K5 (``csrc/apply_stacked.cu``): Ye_e = A_e (m X)_e.
+def apply_stacked_plain(X, gs, Abig, mask, park, C: int):
+    """Plain twin of K5: m * sum_e A_e (m X)_e + park * (X - m X) as two
+    passes, the element product and K2's twin with its epilogue once per
+    component."""
+    D = mask.shape[0]
+    Ye = apply_stacked_elem_plain(X, mask, gs.elem_dofs, Abig, C)
+    parts = [accumulate_plain(Ye[c], gs.idx_v, gs.valid_v, gs.idx_e,
+                              gs.valid_e, X[c * D:(c + 1) * D], mask, park)
+             for c in range(C)]
+    return parts[0] if C == 1 else torch.cat(parts, dim=0)
 
-    X (C * D, k) f32, the stacked component-major block (unmasked: the
-    kernel multiplies each gathered row by ``mask`` (D,)); elem_dofs
-    (E, 6) int32; Abig (E, 6C, 6C) f32; C is 1 or 3. Returns Ye
-    (C, E, 6, k): slab c is the (E, 6, k) block K2 sums into rows
-    [c D, (c + 1) D), one K2 launch per component.
+
+def apply_stacked(X, gs, Abig, mask, park, C: int):
+    """K5 (``csrc/apply_stacked.cu``): the stacked-block apply,
+    ``m * sum_e A_e (m X)_e + park * (X - m X)``, one launch.
+
+    X (C * D, k) f32, the stacked component-major block; ``gs`` a
+    GatherScatter (the kernel reads the row blocks and element halos of
+    ``gs.apply_plan``; the twin the element and transpose tables); Abig
+    (E, 6C, 6C) f32; mask (D,) f32, the same for
+    every component; park (k,) f32 per column; C is 1 or 3. Returns Y
+    (C * D, k).
     """
     if X.device.type == "cpu":
-        return apply_stacked_elem_plain(X, mask, elem_dofs, Abig, C)
+        return apply_stacked_plain(X, gs, Abig, mask, park, C)
     dev = X.device
     D = mask.shape[0]
-    E = elem_dofs.shape[0]
+    E = gs.elem_dofs.shape[0]
     k = X.shape[1]
-    f32 = torch.float32
+    f32, i32 = torch.float32, torch.int32
     if C not in (1, 3):
         raise ValueError(f"the stacked apply takes C = 1 or 3, got {C}")
+    pl = gs.apply_plan
+    NB, HE = pl.elems.shape
     _require(X, "X", f32, dev, (C * D, k))
-    _require(mask, "mask", f32, dev, (D,))
-    _require(elem_dofs, "elem_dofs", torch.int32, dev, (E, 6))
     _require(Abig, "Abig", f32, dev, (E, 6 * C, 6 * C))
-    Ye = torch.empty((C, E, 6, k), dtype=f32, device=dev)
+    _require(mask, "mask", f32, dev, (D,))
+    _require(park, "park", f32, dev, (k,))
+    if NB != -(-D // pl.rows):
+        raise ValueError(f"plan of {NB} blocks of {pl.rows} rows does not "
+                         f"cover {D} rows")
+    _require(pl.order, "plan.order", i32, dev, (D,))
+    _require(pl.row_ptr, "plan.row_ptr", i32, dev, (NB * pl.rows + 1,))
+    _require(pl.elems, "plan.elems", i32, dev)
+    _require(pl.n_elems, "plan.n_elems", i32, dev, (NB,))
+    _require(pl.dst, "plan.dst", torch.int16, dev, (NB, HE, 6))
+    _require(pl.dofs, "plan.dofs", i32, dev, (NB, HE, 6))
+    Y = torch.empty((C * D, k), dtype=f32, device=dev)
     rc = lib().pl_apply_stacked(
-        X.data_ptr(), mask.data_ptr(), elem_dofs.data_ptr(), Abig.data_ptr(),
-        E, D, k, C, Ye.data_ptr(), _stream(dev))
-    _check(rc, "apply_stacked_elem")
-    _count(apply_stacked_elem)
-    return Ye
+        X.data_ptr(), Abig.data_ptr(), mask.data_ptr(), park.data_ptr(),
+        pl.order.data_ptr(), pl.row_ptr.data_ptr(), pl.elems.data_ptr(),
+        pl.n_elems.data_ptr(), pl.dst.data_ptr(), pl.dofs.data_ptr(), D, k,
+        C, pl.rows, HE, int(pl.max_entries), Y.data_ptr(), _stream(dev))
+    _check(rc, "apply_stacked")
+    _count(apply_stacked)
+    return Y
 
 
-apply_stacked_elem.launches = 0
+apply_stacked.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -20,12 +20,11 @@ the reference the kernel is held against.
 
 The stacked form (``_apply_stacked`` .. ``solve_lowest_kernel``) applies
 a C-component operator from its assembled (E, 6C, 6C) element blocks to
-the component-major block (C D, k): K5 (``apply_stacked_elem``) for the
-gather and the per-element product, K2 once per component for the sum
-and the mask / park epilogue, K3 once per component and degree step for
-B^{-1}, K4 for the recurrence on the block viewed as (C D, 1, 1, k).
-C = 1 is the scalar pencil. The spectrum bound both solvers start from
-is K8 (``pencil_bounds_elem``).
+the component-major block (C D, k): K5 (``apply_stacked``) for the
+whole apply with its mask and park in one launch, K3 once per component
+and degree step for B^{-1}, K4 for the recurrence on the block viewed as
+(C D, 1, 1, k). C = 1 is the scalar pencil. The spectrum bound both
+solvers start from is K8 (``pencil_bounds_elem``).
 """
 from __future__ import annotations
 
@@ -38,7 +37,7 @@ import numpy as np
 import torch
 
 from .assembly import ApplyPlan, MassPlan
-from .cuda_kernels import (BinvStep, accumulate, apply_stacked_elem,
+from .cuda_kernels import (BinvStep, accumulate, apply_stacked,
                            apply_vector3, mass_apply, mass_apply_plain,
                            pencil_bounds)
 from .quadrature import RULES, p2_shape
@@ -60,8 +59,8 @@ class GatherScatter(NamedTuple):
     table rows [split, D) (P2 edge midpoints, valence exactly <= 2).
     ``plan`` is the mass kernel's per-grid plan (``assembly.mass_plan``:
     its Morton row blocks and their halos), ``apply_plan`` the A(beta)
-    apply kernel's (``assembly.apply_plan``: larger row blocks and their
-    element halos); storage order is unchanged.
+    and stacked applies' (``assembly.apply_plan``: larger row blocks and
+    their element halos); storage order is unchanged.
     """
 
     elem_dofs: torch.Tensor     # (E, 6) int32
@@ -70,7 +69,7 @@ class GatherScatter(NamedTuple):
     idx_e: torch.Tensor         # (D - split, 2) int32
     valid_e: torch.Tensor       # (D - split, 2) bool
     plan: MassPlan              # the mass kernel's row blocks and halos
-    apply_plan: ApplyPlan       # the A(beta) apply's row blocks, elements
+    apply_plan: ApplyPlan       # K1's and K5's row blocks, elements
 
 
 class QFactor(NamedTuple):
@@ -457,20 +456,8 @@ def pencil_bounds_elem(Abig, Bblk, elem_valid, C: int = 1):
 # the stacked-block solver (scalar pencil: C = 1)
 # ---------------------------------------------------------------------------
 
-def _accumulate(Ye, gs: GatherScatter, X=None, mask=None, park=None):
-    """(C, E, 6, k) element results -> (C D, k) DOF sums, one K2 launch
-    per component, with the optional epilogue on X (C D, k), mask (D,)
-    and park (k,)."""
-    C = Ye.shape[0]
-    D = gs.idx_v.shape[0] + gs.idx_e.shape[0]
-    parts = [_accumulate_fused(Ye[c], gs,
-                               None if X is None else X[c * D:(c + 1) * D],
-                               mask, park) for c in range(C)]
-    return parts[0] if C == 1 else torch.cat(parts, dim=0)
-
-
 def _park_lanes(park, k: int, like: torch.Tensor) -> torch.Tensor:
-    """``park`` as the (k,) per-lane vector K2 takes."""
+    """``park`` as the (k,) per-lane vector K5 takes."""
     if isinstance(park, torch.Tensor) and park.dim() == 1:
         return park
     return torch.full((k,), float(park), dtype=like.dtype, device=like.device)
@@ -478,10 +465,10 @@ def _park_lanes(park, k: int, like: torch.Tensor) -> torch.Tensor:
 
 def _apply_stacked(Abig, gs: GatherScatter, mask, park, X, C: int):
     """P A P X + park (I - P) X for the stacked (E, 6C, 6C) operator on
-    the component-major block X (C D, k): K5, then K2 per component.
-    ``park`` is a float or a (k,) tensor."""
-    Ye = apply_stacked_elem(X, mask, gs.elem_dofs, Abig, C)
-    return _accumulate(Ye, gs, X, mask, _park_lanes(park, X.shape[1], X))
+    the component-major block X (C D, k), one K5 launch. ``park`` is a
+    float or a (k,) tensor."""
+    return apply_stacked(X, gs, Abig, mask,
+                         _park_lanes(park, X.shape[1], X), C)
 
 
 def _apply_mass(w, gs: GatherScatter, mask, X, C: int, park: float = 1.0):

@@ -24,10 +24,21 @@ in ``pl_fem_tpu_torch/workloads.py``. Three measurements:
    copy intervals), the device's idle share and the device time by
    kernel family.
 
-``--scalar`` measures instead one scalar design: the 5-core sample of
-the scalar run's draw (``workloads.scalar_dataset_argv``, the serial
-loop: one solve plus a re-mesh and a solve per CMT slice), warm, under
-the profiler, with the scalar solver's own phase seconds.
+``--scalar`` measures the scalar path instead:
+
+1. the config-1 scalar solve (``ScalarHelmholtzSolver.solve`` of the
+   1.55 um design on the config-1 mesh, N_MODES modes): a warm-up, then
+   SWEEPS timed solves, each with its phase seconds
+   (``last_solve_times``, the filter among them);
+2. one stacked apply (``kernels._apply_stacked``, through whatever
+   kernels the tree runs for it) at C = 1 on the scalar pencil's blocks
+   and at C = 3 on the (E, 18, 18) vectorial blocks, timed with CUDA
+   events on the config-1 mesh at k = 22 and on a mesh at the r5
+   settings at k = 27;
+3. one scalar design: the 5-core sample of the scalar run's draw
+   (``workloads.scalar_dataset_argv``, the serial loop: one solve plus a
+   re-mesh and a solve per CMT slice), warm, under the profiler, with
+   the scalar solver's own phase seconds.
 
 Prints one JSON object as its last line; ``--out`` also writes it.
 """
@@ -50,7 +61,7 @@ FAMILIES = (
     ("K2 accumulate", ("accumulate",)),
     ("K3 mass apply", ("mass_apply", "apply_mass_elem")),
     ("K4 cheb_step (Triton)", ("_step", "_colnorm", "_rescale")),
-    ("K5 apply_stacked_elem", ("apply_stacked",)),
+    ("K5 apply_stacked", ("apply_stacked",)),
     ("K6 eps_at_quadrature (Triton)", ("_eps",)),
     ("K7 scalar_blocks", ("scalar_blocks",)),
     ("K8 pencil_bounds", ("pencil_rows", "pencil_max")),
@@ -103,28 +114,110 @@ def config1_sweeps(n: int):
     return {"D": int(dg.n_dofs_padded), "runs": runs}
 
 
-def apply_times(reps: int = 20):
-    """CUDA-event milliseconds of one packed A(beta) apply at the two
-    shapes of the module note (after one warm-up call each)."""
-    import tempfile
-
-    import numpy as np
+def scalar_solves(n: int):
+    """Phase seconds of a warm-up and ``n`` timed config-1 scalar
+    solves."""
     import torch
+
+    from pl_fem_tpu_torch import workloads as wl
+    from pl_fem_tpu_torch.solvers import ScalarHelmholtzSolver
+
+    cfg, _, dg, _ = wl.config1_sweep()
+    runs = []
+    for i in range(n + 1):
+        solver = ScalarHelmholtzSolver(wl.config1_geom(1.55), cfg)
+        t0 = time.perf_counter()
+        solver.solve(dg, wl.N_MODES)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        phases = dict(solver.last_solve_times)
+        print(f"config-1 scalar solve {'warm-up' if i == 0 else i}: "
+              f"{wall:.3f} s; phases {json.dumps(phases)}", flush=True)
+        if i:
+            runs.append({"wall_s": wall, "phases_s": phases})
+    return {"D": int(dg.n_dofs_padded), "runs": runs}
+
+
+def _event_ms(fn, reps: int) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def _r5_grid():
+    """A mesh of the config-1 design at the r5 dataset's settings."""
+    import tempfile
 
     from pl_fem_tpu_torch import cli
     from pl_fem_tpu_torch import workloads as wl
+    from pl_fem_tpu_torch.ops.femgrid import MeshGenerator, export_device_grid
+
+    with tempfile.TemporaryDirectory(prefix="profile_design_") as tmp:
+        cfg = cli.generator(wl.dataset_argv(tmp))[0].config
+    return export_device_grid(MeshGenerator.generate(
+        wl.config1_geom(1.55), 1.0, cfg), cfg.mesh.bucket_rounding)
+
+
+def stacked_apply_times(reps: int = 50):
+    """CUDA-event milliseconds of one stacked apply at the shapes of the
+    module note (after one warm-up call each)."""
+    import numpy as np
+    import torch
+
+    from pl_fem_tpu_torch import workloads as wl
     from pl_fem_tpu_torch.ops import assembly as ta
     from pl_fem_tpu_torch.ops import kernels as tk
-    from pl_fem_tpu_torch.ops.femgrid import MeshGenerator, export_device_grid
 
     dev = torch.device("cuda")
     _, _, dg1, _ = wl.config1_sweep()
-    with tempfile.TemporaryDirectory(prefix="profile_design_") as tmp:
-        cfg = cli.generator(wl.dataset_argv(tmp))[0].config
-    dg5 = export_device_grid(MeshGenerator.generate(
-        wl.config1_geom(1.55), 1.0, cfg), cfg.mesh.bucket_rounding)
+    geom = wl.config1_geom(1.55)
     out = {}
-    for name, dg, B, k in (("config1", dg1, 8, 22), ("dataset", dg5, 5, 42)):
+    for name, dg, k in (("config1", dg1, 22), ("r5", _r5_grid(), 27)):
+        ga = ta.grid_to_device(dg, dev)
+        gs = ta.gather_scatter(ga)
+        ea = ta.eps_arrays(geom.eps_params(), dev)
+        A1 = ta.assemble_scalar_system(ga, ea, geom.k0)[0]
+        prim = ta.assemble_vector3_system(ga, ea)[0]
+        A3 = ta.vector3_stacked_A(prim, np.float32(geom.k0 * 1.49),
+                                  np.float32(1.0))
+        del prim
+        g = torch.Generator(device=dev).manual_seed(0)
+        D = dg.n_dofs_padded
+        for C, A, mask in ((1, A1, ga.dof_valid), (3, A3, ga.interior_mask)):
+            X = torch.randn((C * D, k), generator=g, device=dev)
+            ms = _event_ms(lambda: tk._apply_stacked(A, gs, mask, 1.0, X, C),
+                           reps)
+            out[f"{name}_c{C}"] = {"D": int(D), "E": int(A.shape[0]),
+                                   "k": k, "C": C, "ms": ms}
+            print(f"stacked apply at {name} (D={D}, C={C}, k={k}): "
+                  f"{ms:.4f} ms", flush=True)
+    return out
+
+
+def apply_times(reps: int = 20):
+    """CUDA-event milliseconds of one packed A(beta) apply at the two
+    shapes of the module note (after one warm-up call each)."""
+    import numpy as np
+    import torch
+
+    from pl_fem_tpu_torch import workloads as wl
+    from pl_fem_tpu_torch.ops import assembly as ta
+    from pl_fem_tpu_torch.ops import kernels as tk
+
+    dev = torch.device("cuda")
+    _, _, dg1, _ = wl.config1_sweep()
+    out = {}
+    for name, dg, B, k in (("config1", dg1, 8, 22),
+                           ("dataset", _r5_grid(), 5, 42)):
         ga = ta.grid_to_device(dg, dev)
         gs = ta.gather_scatter(ga)
         geoms = [wl.config1_geom(float(w)) for w in np.linspace(1.5, 1.6, B)]
@@ -140,20 +233,8 @@ def apply_times(reps: int = 20):
         X = torch.randn((dg.n_dofs_padded, B, 3, k), generator=g,
                         device=dev)
 
-        def apply():
-            return tk._apply_vector3_fused(qs, gs, ga.interior_mask, parks,
-                                           betas, 1.0, X)
-
-        apply()
-        torch.cuda.synchronize()
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        for _ in range(reps):
-            apply()
-        t1.record()
-        torch.cuda.synchronize()
-        ms = t0.elapsed_time(t1) / reps
+        ms = _event_ms(lambda: tk._apply_vector3_fused(
+            qs, gs, ga.interior_mask, parks, betas, 1.0, X), reps)
         out[name] = {"D": int(dg.n_dofs_padded), "B": B, "k": k, "ms": ms}
         print(f"A(beta) apply at {name} (D={dg.n_dofs_padded}, B={B}, "
               f"k={k}): {ms:.3f} ms", flush=True)
@@ -262,6 +343,8 @@ def main(argv=None) -> int:
           flush=True)
     if args.scalar:
         result = {"card": card, "repo": str(repo),
+                  "scalar_solve": scalar_solves(SWEEPS),
+                  "stacked_apply_ms": stacked_apply_times(),
                   "scalar_dataset_design": dataset_design(5, scalar=True)}
     else:
         result = {"card": card, "repo": str(repo),

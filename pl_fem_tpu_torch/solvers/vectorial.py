@@ -361,13 +361,15 @@ class TrueVectorialMaxwellSolver:
     @classmethod
     def _bootstrap_sweep(cls, geometries, dg: DeviceGrid,
                          n_modes_target: int, cfg: SimulationConfig,
-                         generator: torch.Generator, noise=None):
+                         generator: torch.Generator, noise=None,
+                         coarse_X0=None):
         """Coarse-mesh solve -> prolonged Ritz vectors + per-design beta.
 
         Solves the same sweep on a ~6x-coarser mesh and P2-interpolates
-        the polished coarse modes onto the fine DOFs. Returns (X0 (3Dp,
-        B, k) f32 tensor, betas (B,), used mask) or None if the bootstrap
-        is not applicable.
+        the polished coarse modes onto the fine DOFs. ``coarse_X0`` is
+        the coarse sweep's ``X0`` (see ``solve_sweep``), ``noise`` the
+        seed's blend. Returns (X0 (3Dp, B, k) f32 tensor, betas (B,),
+        used mask) or None if the bootstrap is not applicable.
         """
         import dataclasses as dc
 
@@ -424,7 +426,7 @@ class TrueVectorialMaxwellSolver:
                 return None
             results_c = cls.solve_sweep(geometries, grid_c,
                                         n_modes_target, coarse_cfg,
-                                        _raw_modes=True)
+                                        _raw_modes=True, X0=coarse_X0)
         except (ValueError, QhullError, np.linalg.LinAlgError,
                 torch.linalg.LinAlgError) as e:
             # the bootstrap only accelerates; a failed coarse solve
@@ -466,7 +468,7 @@ class TrueVectorialMaxwellSolver:
                     config: Optional[SimulationConfig] = None,
                     _raw_modes: bool = False,
                     diag_out: Optional[Dict[int, str]] = None,
-                    X0=None, noise=None):
+                    X0=None, noise=None, coarse_X0=None):
         """Solve B same-grid designs in one packed device sweep.
 
         All geometries must share the mesh; they may differ in
@@ -480,23 +482,28 @@ class TrueVectorialMaxwellSolver:
         ``diag_out``: optional dict that receives the per-design
         diagnostics of THIS call (design index -> message).
 
-        ``X0`` (3Dp, B, k): optional start subspace (numpy or tensor);
-        given, it replaces both the random start and the bootstrap.
+        ``X0`` (3Dp, B, k): optional start subspace (numpy or tensor),
+        or a function of that shape returning one; given, it replaces
+        both the random start and the bootstrap.
         ``noise``: optional (R1, R2) standard-normal (3Dp, B, k) blocks
-        for the bootstrap seed's blend. Both exist so that tests can feed this
-        package and the JAX package the same numbers; by default they
-        come from a ``torch.Generator`` seeded with ``SolverConfig.seed``.
+        for the bootstrap seed's blend. ``coarse_X0``: the bootstrap's
+        coarse sweep's ``X0``, in the same forms on the coarse grid (a
+        function, since the coarse grid is chosen inside). These exist so
+        that tests can feed this package and the JAX package the same
+        numbers; by default they come from a ``torch.Generator`` seeded
+        with ``SolverConfig.seed``.
 
         Safe to call from several threads at once (the dataset engine's
         bucket pipeline): the device-memory budget is shared among them.
         """
         with _sweep_running():
             return cls._solve_sweep(geometries, grid, n_modes_target,
-                                    config, _raw_modes, diag_out, X0, noise)
+                                    config, _raw_modes, diag_out, X0, noise,
+                                    coarse_X0)
 
     @classmethod
     def _solve_sweep(cls, geometries, grid, n_modes_target, config,
-                     _raw_modes, diag_out, X0, noise):
+                     _raw_modes, diag_out, X0, noise, coarse_X0):
         from ..utils import PhaseTimer
 
         timer = PhaseTimer()
@@ -555,8 +562,8 @@ class TrueVectorialMaxwellSolver:
         k_est = min(n_modes_target + scfg.extra_vectors, n)
         b_max = _designs_per_sweep(dev, dg.elem_dofs.shape[0], Dp, k_est)
         if B > b_max:
-            if X0 is not None or noise is not None:
-                raise ValueError("X0/noise cannot be split across "
+            if any(a is not None for a in (X0, noise, coarse_X0)):
+                raise ValueError("X0/noise/coarse_X0 cannot be split across "
                                  "sub-sweeps; pass fewer designs")
             out = []
             for s in range(0, B, b_max):
@@ -578,7 +585,8 @@ class TrueVectorialMaxwellSolver:
         if X0 is None and scfg.bootstrap and n >= scfg.bootstrap_min_dofs:
             with timer.phase("bootstrap"):
                 boot = cls._bootstrap_sweep(geometries, dg, n_modes_target,
-                                            cfg, gen, noise=noise)
+                                            cfg, gen, noise=noise,
+                                            coarse_X0=coarse_X0)
 
         with timer.phase("assemble"):
             ga = grid_to_device(dg, dev)
@@ -652,6 +660,8 @@ class TrueVectorialMaxwellSolver:
                 X = torch.randn((3 * Dp, B, k), generator=gen, device=dev,
                                 dtype=torch.float32)
             else:
+                if callable(X0):
+                    X0 = X0((3 * Dp, B, k))
                 X = torch.tensor(np.asarray(X0, dtype=np.float32),
                                  device=dev)
             cheb_passes_eff = scfg.cheb_passes

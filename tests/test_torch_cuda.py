@@ -247,21 +247,36 @@ def scalar_setup(setup, dev):
     return dict(g=g, ea=ea, A=A, B=Bm, diag=diag, A3=A3, M3=prim["u_nn"])
 
 
-@pytest.mark.parametrize("C,k", [(1, 1), (1, 7), (1, 22), (1, 300), (3, 22)])
-def test_apply_stacked_elem(setup, scalar_setup, dev, C, k):
-    """K5 against its twin, and the whole stacked apply (K5 + K2 per
-    component) against the twins' on the CPU."""
+def _check_stacked(gs, Abig, mask, X, C):
+    """K5 against its twin: within 1e-5 of max|y|, one launch, and the
+    same bits from a second launch."""
+    park = torch.linspace(1.0, 50.0, X.shape[1], device=X.device)
+    n0 = ck.apply_stacked.launches
+    y = ck.apply_stacked(X, gs, Abig, mask, park, C)
+    assert ck.apply_stacked.launches == n0 + 1
+    assert y.shape == X.shape
+    assert _rel(ck.apply_stacked_plain(X, gs, Abig, mask, park, C), y) <= 1e-5
+    assert torch.equal(y, ck.apply_stacked(X, gs, Abig, mask, park, C))
+
+
+@pytest.mark.parametrize("rows", [ta.APPLY_ROWS, ta.APPLY_ROWS // 2])
+@pytest.mark.parametrize("C,k", [(1, 1), (1, 7), (1, 22), (1, 27), (1, 300),
+                                 (3, 7), (3, 22), (3, 27), (3, 60)])
+def test_apply_stacked(setup, scalar_setup, dev, C, k, rows):
+    """K5, the whole stacked apply, at C = 1 on the scalar pencil's
+    blocks (valid-DOF mask) and at C = 3 on the (E, 18, 18) vectorial
+    blocks (interior mask): rows written whole by one lane chunk up to
+    k = 48 / C, lane chunks above; on the grid's plan and on one of half
+    its rows per block (256 threads); and through ``_apply_stacked``
+    against the CPU twin."""
     ga, gs = setup["ga"], setup["gs"]
+    if rows != gs.apply_plan.rows:
+        gs = gs._replace(apply_plan=ta._apply_plan(ga, rows))
     D = ga.dof_valid.shape[0]
     Abig = scalar_setup["A"] if C == 1 else scalar_setup["A3"]
     mask = ga.dof_valid if C == 1 else ga.interior_mask
     X = torch.randn((C * D, k), generator=setup["gen"], device=dev)
-    n0 = ck.apply_stacked_elem.launches
-    Ye = ck.apply_stacked_elem(X, mask, gs.elem_dofs, Abig, C)
-    assert ck.apply_stacked_elem.launches == n0 + 1
-    assert Ye.shape == (C, gs.elem_dofs.shape[0], 6, k)
-    ref = ck.apply_stacked_elem_plain(X, mask, gs.elem_dofs, Abig, C)
-    assert _rel(ref, Ye) <= 1e-5
+    _check_stacked(gs, Abig, mask, X, C)
     y = tk._apply_stacked(Abig, gs, mask, 50.0, X, C)
     ga_c = ta.GridArrays(*(t.cpu() for t in ga))
     ref = tk._apply_stacked(Abig.cpu(), ta.gather_scatter(ga_c),
@@ -270,8 +285,8 @@ def test_apply_stacked_elem(setup, scalar_setup, dev, C, k):
 
 
 def test_apply_stacked_matches_fused_apply(setup, scalar_setup, dev):
-    """K5 + K2 on the assembled (E, 18, 18) blocks == K1 + K2, the
-    matrix-free A(beta) apply, on the same block (B = 1)."""
+    """K5 on the assembled (E, 18, 18) blocks == K1, the matrix-free
+    A(beta) apply, on the same block (B = 1)."""
     ga, gs = setup["ga"], setup["gs"]
     g = scalar_setup["g"]
     D = ga.dof_valid.shape[0]
@@ -347,15 +362,24 @@ def test_scalar_wrappers_refuse_bad_input(setup, scalar_setup, dev):
     ga, gs = setup["ga"], setup["gs"]
     D = ga.dof_valid.shape[0]
     X = torch.zeros((D, 4), device=dev)
+    park = torch.ones(4, device=dev)
     with pytest.raises(TypeError):
-        ck.apply_stacked_elem(X.double(), ga.dof_valid, gs.elem_dofs,
-                              scalar_setup["A"], 1)
+        ck.apply_stacked(X.double(), gs, scalar_setup["A"], ga.dof_valid,
+                         park, 1)
     with pytest.raises(ValueError):             # C = 2 has no kernel
-        ck.apply_stacked_elem(X, ga.dof_valid, gs.elem_dofs,
-                              scalar_setup["A"], 2)
+        ck.apply_stacked(X, gs, scalar_setup["A"], ga.dof_valid, park, 2)
     with pytest.raises(ValueError):             # (E, 18, 18) given as C = 1
-        ck.apply_stacked_elem(X, ga.dof_valid, gs.elem_dofs,
-                              scalar_setup["A3"], 1)
+        ck.apply_stacked(X, gs, scalar_setup["A3"], ga.dof_valid, park, 1)
+    with pytest.raises(ValueError):             # park is one per column
+        ck.apply_stacked(X, gs, scalar_setup["A"], ga.dof_valid,
+                         torch.ones(5, device=dev), 1)
+    with pytest.raises(ValueError):             # X (D, k) given as C = 3
+        ck.apply_stacked(X, gs, scalar_setup["A3"], ga.interior_mask,
+                         park, 3)
+    with pytest.raises(ValueError):             # a plan of another grid
+        ck.apply_stacked(X, gs._replace(apply_plan=gs.apply_plan._replace(
+            n_elems=gs.apply_plan.n_elems[:-1].contiguous())),
+            scalar_setup["A"], ga.dof_valid, park, 1)
     with pytest.raises(ValueError):
         ck.pencil_bounds(scalar_setup["A"], scalar_setup["B"],
                          ga.elem_valid[:-1].contiguous(),
@@ -368,7 +392,8 @@ def test_scalar_wrappers_refuse_bad_input(setup, scalar_setup, dev):
 def test_scalar_solve_on_card_matches_cpu(dev):
     """ScalarHelmholtzSolver.solve on the card (K2-K8) against the same
     solve through the twins on the CPU from the same start block: n_eff
-    within 1e-6 after the host polish; every kernel of the path launches."""
+    within 1e-6 after the host polish; every kernel of the path launches,
+    K5 once per A apply."""
     from pl_fem_tpu_torch.config import SolverConfig
     from pl_fem_tpu_torch.solvers import ScalarHelmholtzSolver
 
@@ -383,13 +408,19 @@ def test_scalar_solve_on_card_matches_cpu(dev):
     X0 = np.random.default_rng(42).standard_normal(
         (dg.n_dofs_padded, k)).astype(np.float32)
     wrappers = (ck.accumulate, ck.mass_apply, trk.cheb_step,
-                ck.apply_stacked_elem, trk.eps_at_quadrature,
+                ck.apply_stacked, trk.eps_at_quadrature,
                 ck.scalar_blocks, ck.pencil_bounds)
     before = [f.launches for f in wrappers]
     on_card = ScalarHelmholtzSolver(geom, SimulationConfig(
         **mesh, solver=SolverConfig(device="cuda", **skw))).solve(dg, 8,
                                                                   X0=X0)
     assert all(f.launches > n for f, n in zip(wrappers, before))
+    # K5 once per A apply: per K4 step, and per pass (degree steps each)
+    # in its Rayleigh-Ritz
+    n4 = trk.cheb_step.launches - before[2]
+    n5 = ck.apply_stacked.launches - before[3]
+    assert n4 % skw["cheb_degree"] == 0
+    assert n5 == n4 + n4 // skw["cheb_degree"]
     on_cpu = ScalarHelmholtzSolver(geom, SimulationConfig(
         **mesh, solver=SolverConfig(device="cpu", **skw))).solve(dg, 8,
                                                                  X0=X0)

@@ -149,7 +149,7 @@ def test_eps_twin_decides_every_point_as_jax(pencils):
 
 
 # ---------------------------------------------------------------------------
-# the stacked applies (K5 + K2 twins, K3 twin) and the bound (K8 twin)
+# the stacked applies (K5 twin, K3 twin) and the bound (K8 twin)
 # ---------------------------------------------------------------------------
 
 def _stacked_c3(pencils):
@@ -167,9 +167,10 @@ def _stacked_c3(pencils):
 
 @pytest.mark.parametrize("C", [1, 3])
 def test_apply_stacked_matches_jax(pencils, C):
-    """_apply_stacked (K5 twin + K2 twin per component) on the scalar
-    blocks with the valid-DOF mask (C = 1) and on the (E, 18, 18)
-    vectorial blocks with the interior mask (C = 3)."""
+    """_apply_stacked (K5's twin: the element product, then K2's twin
+    with its epilogue per component) on the scalar blocks with the
+    valid-DOF mask (C = 1) and on the (E, 18, 18) vectorial blocks with
+    the interior mask (C = 3)."""
     D = pencils["D"]
     X = pencils["rng"].standard_normal((C * D, K)).astype(np.float32)
     if C == 1:
@@ -203,6 +204,44 @@ def test_apply_stacked_c3_matches_fused_apply(pencils):
         qs, tgs, tga.interior_mask, torch.tensor([50.0]),
         torch.tensor([beta]), 1.0, tk._fused_from_stacked(X)))[:, 0]
     assert _rel(ref.numpy(), y.numpy()) <= 1e-5
+
+
+@pytest.mark.parametrize("C", [1, 3])
+def test_apply_plan_reproduces_the_stacked_apply(pencils, C):
+    """K5's sum, emulated in f64 on the grid's apply plan: every element
+    slot of a block writes the results of its own entries (``dst``),
+    each entry exactly once, and each owned row sums its entries in the
+    plan's order, one sum per component (rows c D + d), then the mask
+    and park; this reproduces the twin within 1e-6."""
+    tga, tgs, D = pencils["tga"], pencils["tgs"], pencils["D"]
+    plan = tgs.apply_plan
+    R, NB = plan.rows, plan.elems.shape[0]
+    if C == 1:
+        A, mask, park = pencils["designs"][0]["tA"], tga.dof_valid, 1.0
+    else:
+        A, mask, park = _stacked_c3(pencils)[5], tga.interior_mask, 50.0
+    X = _t(pencils["rng"].standard_normal((C * D, K)).astype(np.float32))
+    dt = torch.float64
+    b, s, i = (plan.dst >= 0).nonzero(as_tuple=True)
+    e = plan.elems.long()[b, s]
+    g = plan.row_ptr.long()[b * R] + plan.dst.long()[b, s, i]
+    n_ent = int(plan.row_ptr[-1])
+    assert torch.equal(torch.bincount(g, minlength=n_ent),
+                       torch.ones(n_ent, dtype=torch.int64))
+    pos = torch.repeat_interleave(
+        torch.arange(NB * R), (plan.row_ptr[1:] - plan.row_ptr[:-1]).long())
+    m, Xd = mask.to(dt), X.to(dt)
+    Ye = ck.apply_stacked_elem_plain(Xd, m, tga.elem_dofs, A.to(dt), C)
+    out = []
+    for c in range(C):
+        Y = torch.zeros((NB * R, K), dtype=dt)
+        Y.index_add_(0, pos[g], Ye[c, e, i])
+        Yd = torch.zeros((D, K), dtype=dt)
+        Yd[plan.order.long()] = Y[:D]
+        Xc = Xd[c * D:(c + 1) * D]
+        out.append(Yd * m[:, None] + park * (Xc - Xc * m[:, None]))
+    ref = tk._apply_stacked(A, tgs, mask, park, X, C)
+    assert _rel(ref.numpy(), torch.cat(out).numpy()) <= 1e-6
 
 
 def test_mass_applies_match_jax_blocks(pencils):
