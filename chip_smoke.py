@@ -636,7 +636,9 @@ def _scalar_kernel_checks(dg, geom, k, dev):
     plan = gs.apply_plan
     NB, HE = plan.elems.shape
     # the plan's tables (order, entry offsets, halo elements and their
-    # counts, entry slots, the slots' DOFs): read once
+    # counts, entry slots, the slots' DOFs), padded to HE slots per block:
+    # what this design reads, printed beside the bound; the bound itself
+    # counts the function's own connectivity, the (E, 6) element table
     plan_bytes = (4 * D + 4 * (NB * plan.rows + 1) + 4 * NB * HE + 4 * NB
                   + (2 + 4) * 6 * NB * HE)
     print(f"  K5 plan: {plan.rows} rows per block, {plan.recompute:.3f} "
@@ -664,10 +666,11 @@ def _scalar_kernel_checks(dg, geom, k, dev):
             f"accumulate, park)",
             lambda: ck.apply_stacked(*args),
             lambda: ck.apply_stacked_plain(*args),
-            (4 * (R * R * E + 2 * C * D * k + D + k) + plan_bytes,
+            (4 * (R * R * E + 2 * C * D * k + D + k + 6 * E),
              2 * R * R * E * k),
             lambda: torch.sparse.mm(S, X))
         del S
+        row["plan_bytes"] = plan_bytes
         row["host_ms"] = _host_ms(lambda: ck.apply_stacked(*args))
         print(f"  K5 (C = {C}) host time per call, no sync: "
               f"{row['host_ms']:.4f} ms", flush=True)

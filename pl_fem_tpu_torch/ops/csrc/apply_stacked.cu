@@ -48,6 +48,8 @@
 
 #include <cuda_runtime.h>
 
+#include "shared_limit.cuh"
+
 namespace {
 
 constexpr int kChunkFloats = 48;              // C * LC: floats per entry
@@ -58,7 +60,6 @@ constexpr int kStage = 4;
 // lanes a thread evaluates of one element: the element's entries and
 // lookups are read once for all of them
 constexpr int lanes_per_thread(int C) { return C == 1 ? 4 : 2; }
-constexpr size_t kMaxShared = 227 * 1024 - 1024;
 
 struct StackedArgs {
     const float* X;            // (C D, k)
@@ -244,13 +245,8 @@ apply_stacked_kernel(const StackedArgs p)
 template <int C, int THREADS>
 cudaError_t launch(const StackedArgs& p, size_t shmem, cudaStream_t stream)
 {
-    // the same value at every launch: two threads (the dataset engine's
-    // bucket pipeline) launch at once, and a size set per launch by one
-    // could fall under the other's request before it launches, which
-    // then fails as "too many resources requested for launch"
-    const cudaError_t err = cudaFuncSetAttribute(
-        apply_stacked_kernel<C, THREADS, lanes_per_thread(C)>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxShared);
+    const cudaError_t err = set_shared_limit(
+        apply_stacked_kernel<C, THREADS, lanes_per_thread(C)>);
     if (err != cudaSuccess) return err;
     const dim3 grid((p.k + p.LC - 1) / p.LC, (p.D + p.R - 1) / p.R);
     apply_stacked_kernel<C, THREADS, lanes_per_thread(C)>

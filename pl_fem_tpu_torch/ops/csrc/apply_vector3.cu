@@ -48,12 +48,13 @@
 
 #include <cuda_runtime.h>
 
+#include "shared_limit.cuh"
+
 namespace {
 
 constexpr int kMaxQ = 16;
 constexpr int kPairs = 16;                    // pairs per lane chunk
 constexpr int kRowLanes = 3 * kPairs;         // lanes of a chunk
-constexpr size_t kMaxShared = 227 * 1024 - 1024;
 
 struct ApplyArgs {
     const float* X;            // (D, L)
@@ -277,13 +278,8 @@ template <int THREADS>
 cudaError_t launch(const ApplyArgs& p, cudaStream_t stream)
 {
     const size_t shmem = shared_bytes(p.R, p.HE, p.max_ent);
-    // the same value at every launch: two threads (the dataset engine's
-    // bucket pipeline) launch at once, and a size set per launch by one
-    // could fall under the other's request before it launches, which
-    // then fails as "too many resources requested for launch"
-    const cudaError_t err = cudaFuncSetAttribute(
-        apply_vector3_kernel<THREADS>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxShared);
+    const cudaError_t err = set_shared_limit(
+        apply_vector3_kernel<THREADS>);
     if (err != cudaSuccess) return err;
     // the chunks of a row block vary fastest: the blocks in flight share
     // their rows' cache lines, which L2 then reads and writes whole

@@ -46,10 +46,11 @@
 
 #include <cuda_runtime.h>
 
+#include "shared_limit.cuh"
+
 namespace {
 
 constexpr int kRows = 32;            // DOF rows per block (the plan's)
-constexpr size_t kMaxShared = 227 * 1024 - 1024;   // of a block
 constexpr int kThreads = 256;
 constexpr int kChunk = 64;           // lanes staged per pass
 constexpr int kBatch = 8;            // halo loads a thread issues at once
@@ -344,13 +345,8 @@ template <int VEC, int OP>
 cudaError_t launch_op(const MassArgs& p, dim3 grid, size_t shmem,
                       cudaStream_t stream)
 {
-    // the same value at every launch: two threads (the dataset engine's
-    // bucket pipeline) launch at once, and a size set per launch by one
-    // could fall under the other's request before it launches, which
-    // then fails as "too many resources requested for launch"
-    const cudaError_t err = cudaFuncSetAttribute(
-        mass_apply_kernel<VEC, OP>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxShared);
+    const cudaError_t err = set_shared_limit(
+        mass_apply_kernel<VEC, OP>);
     if (err != cudaSuccess) return err;
     mass_apply_kernel<VEC, OP><<<grid, kThreads, shmem, stream>>>(p);
     return cudaGetLastError();

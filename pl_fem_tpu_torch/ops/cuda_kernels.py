@@ -117,7 +117,7 @@ def _stale(lib: Path) -> bool:
     if not lib.exists():
         return True
     t = lib.stat().st_mtime
-    return any(s.stat().st_mtime > t for s in _CSRC.glob("*.cu"))
+    return any(s.stat().st_mtime > t for s in _CSRC.glob("*.cu*"))
 
 
 def lib() -> ctypes.CDLL:

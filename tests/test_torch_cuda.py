@@ -690,3 +690,73 @@ def test_triton_first_launch_from_two_threads(dev, monkeypatch):
     assert not any(t.is_alive() for t in threads)
     assert all(_rel(ref, y) <= 1e-5 and _rel(rs, s) <= 1e-5
                for y, s in out)
+
+
+def test_row_owned_kernels_from_two_threads(setup, scalar_setup, dev):
+    """K1, K3 and K5 launched by two threads at once, 2000 times each, on
+    plans that ask one kernel instance for different dynamic shared
+    memory: the 128- and the 32-row apply plans (both take 256 threads),
+    and the mass plan beside one with 256 padding slots more per halo.
+    A spin kernel before each round keeps the stream full, so launches
+    wait inside the driver. No launch fails, and every result equals,
+    bit for bit, the one a single thread got on the same plan.
+
+    A launcher that sets the limit to each launch's own size races
+    here: one thread can lower it between the other's set and launch,
+    which then fails. The race does not show every time (on an H100 a
+    copy with such launchers failed this test in two runs of three), so
+    test_launchers_set_one_shared_limit in test_torch_host.py also holds
+    the sources to the fix."""
+    s, ss = setup, scalar_setup
+    ga, gs, qs = s["ga"], s["gs"], s["qs"]
+    pl = gs.plan
+    pad = torch.full((pl.halo.shape[0], 256), -1, dtype=torch.int32,
+                     device=dev)
+    padded = pl._replace(halo=torch.cat([pl.halo, pad], 1).contiguous())
+    gss = [gs._replace(apply_plan=ta._apply_plan(ga, 128)),
+           gs._replace(apply_plan=ta._apply_plan(ga, 32), plan=padded)]
+    sizes = [ta.apply_shared_bytes(p.rows, p.elems.shape[1], p.max_entries)
+             for p in (g.apply_plan for g in gss)]
+    assert sizes[0] > 2 * sizes[1]
+    N = tk.shape_table(dev)
+    D = ga.dof_valid.shape[0]
+    X1 = torch.randn((D, 22), generator=s["gen"], device=dev)
+    park = torch.linspace(1.0, 50.0, 22, device=dev)
+    parks = torch.linspace(10.0, 50.0, B, device=dev)
+
+    def launch_all(g):
+        return (ck.apply_vector3(s["X"], g, qs.gp, qs.w, qs.inv_eps,
+                                 s["betas"], 1.0, N, ga.interior_mask,
+                                 parks),
+                ck.mass_apply(s["X"], g, qs.w, N, ga.interior_mask),
+                ck.apply_stacked(X1, g, ss["A"], ga.dof_valid, park, 1))
+
+    refs = [launch_all(g) for g in gss]
+    assert torch.equal(refs[0][1], refs[1][1])
+    differ = [torch.zeros((), dtype=torch.int64, device=dev)
+              for _ in range(2)]
+    rounds = [0, 0]
+    errors = []
+    start = threading.Barrier(2)
+
+    def worker(i):
+        try:
+            start.wait(60)
+            for _ in range(2000):
+                torch.cuda._sleep(200000)
+                for y, r in zip(launch_all(gss[i]), refs[i]):
+                    differ[i] += (y != r).sum()
+                rounds[i] += 1
+            torch.cuda.synchronize()
+        except Exception as exc:      # reported below, with its thread
+            errors.append((i, repr(exc)))
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == []
+    assert rounds == [2000, 2000]
+    assert [int(d) for d in differ] == [0, 0]

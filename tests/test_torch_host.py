@@ -155,3 +155,24 @@ def test_port_sources_name_no_jax():
     smoke = (REPO / "chip_smoke.py").read_text()
     assert "import jax" not in smoke and "from jax" not in smoke
     assert "from pl_fem_tpu." not in smoke
+
+
+def test_launchers_set_one_shared_limit():
+    """The row-owned kernels' launchers (K1, K3, K5) set the dynamic
+    shared-memory limit only through ``set_shared_limit``, to the one
+    fixed value of csrc/shared_limit.cuh. A limit set to each launch's
+    own size races between the dataset engine's two sweep threads: one
+    lowers it under the other's request between that one's set and its
+    launch, which then fails (ROADMAP C). The card test
+    (test_row_owned_kernels_from_two_threads) does not catch the race
+    every time, so the sources are held to the fix here."""
+    csrc = REPO / "pl_fem_tpu_torch" / "ops" / "csrc"
+    header = (csrc / "shared_limit.cuh").read_text()
+    assert "cudaFuncAttributeMaxDynamicSharedMemorySize,\n" \
+           "        (int)kMaxShared);" in header
+    for src in sorted(csrc.glob("*.cu")):
+        assert "cudaFuncSetAttribute" not in src.read_text(), src.name
+    for name in ("apply_vector3.cu", "mass_apply.cu", "apply_stacked.cu"):
+        text = (csrc / name).read_text()
+        assert '#include "shared_limit.cuh"' in text, name
+        assert text.count("set_shared_limit(") == 1, name

@@ -58,6 +58,15 @@ def _config1_pair(jsolver, solver, mesh_min: int = 400):
     return jcfg, cfg, jgs, gs, jdg, dg
 
 
+@pytest.fixture
+def torch_threads():
+    """Four intra-op threads for the long solves (the port's plain twins
+    take most of these tests' time on one thread), one again after."""
+    torch.set_num_threads(4)
+    yield
+    torch.set_num_threads(1)
+
+
 def _jax_normal(shape, key=11):
     return np.asarray(jax.random.normal(jax.random.PRNGKey(key), shape,
                                         dtype=jnp.float32))
@@ -98,7 +107,7 @@ def test_slice_sweep_matches_jax():
             assert np.isfinite(m["Ex_dofs"]).all()
 
 
-def test_bootstrap_sweep_matches_jax(monkeypatch):
+def test_bootstrap_sweep_matches_jax(monkeypatch, torch_threads):
     """The bootstrapped fast path (what bench.py times): B = 2 config-1
     designs on a ~25.8k-DOF mesh, ``bootstrap_min_dofs`` lowered to 2000.
     The mesh must be this large: the fast-mode coarse grid (~6.6k DOFs)
@@ -107,22 +116,41 @@ def test_bootstrap_sweep_matches_jax(monkeypatch):
 
     Both get the same random numbers: the nested coarse sweep's start
     block (the port's ``coarse_X0``, a function of the coarse shape) and
-    the seed's noise pair. The coarse modes' signs are arbitrary (each
-    package's eigensolvers pick their own), and a flipped mode meets the
-    seed's 5% noise blend with the other sign, which moves the single
-    fine pass's n_eff by ~6e-6; so the port's coarse modes are given
-    JAX's signs before the seed. The JAX package's f16 device->host slabs
-    (``xfer_dtype``, vectorial.py:633-634) also rotate the coarse modes
-    inside near-degenerate supermode clusters, so it ships f32 here, as
-    the port does. It still rounds the coarse block to f16 before the
-    seed (vectorial.py:421); the port keeps f32. Then: equal ``used``
-    masks, coarse beta within 1e-5 relative (measured 9e-10), seeds within
-    5e-3 of max|X0| (the f16 rounding; measured 1.2e-3), equal mode
-    counts and n_eff within 1e-5 relative (measured 1.2e-7)."""
+    the seed's noise pair. Two things still differ. The coarse modes'
+    signs are arbitrary (each package's eigensolvers pick their own), and
+    a flipped mode meets the seed's 5% noise blend with the other sign,
+    which moves the single fine pass's n_eff by a few 1e-6. The JAX
+    package's f16 device->host slabs (``xfer_dtype``,
+    vectorial.py:633-634) also rotate the coarse modes inside
+    near-degenerate supermode clusters. So here the port's coarse modes
+    are given JAX's signs before the seed, and JAX ships its slabs in
+    f32, as the port does. JAX still rounds the coarse block to f16
+    before the seed (vectorial.py:421); the port keeps f32. Then: equal
+    ``used`` masks, coarse beta within 1e-5 relative (measured 9e-10),
+    seeds within 5e-3 of max|X0| (the f16 rounding; measured 1.2e-3),
+    equal mode counts and n_eff within 1e-5 relative (measured 9e-8 to
+    1.2e-7)."""
+    _bootstrap_pair(monkeypatch, aligned=True)
+
+
+def test_bootstrap_sweep_matches_jax_defaults(monkeypatch, torch_threads):
+    """The same bootstrapped fast path, with JAX's own settings (f16
+    slabs) against the port's and the coarse modes' signs as each package
+    finds them, the same random numbers: how far the port sits from the
+    reference's default path. Equal ``used`` masks, coarse beta within
+    1e-5 relative (measured 1.3e-7), equal mode counts and n_eff within
+    2e-5 relative (measured 2.7e-6 to 4.5e-6)."""
+    _bootstrap_pair(monkeypatch, aligned=False)
+
+
+def _bootstrap_pair(monkeypatch, aligned: bool):
+    """Both packages' bootstrapped fast path on the 25.8k-DOF mesh from
+    the same random numbers (see the two tests above), compared."""
     sk = dict(cheb_degree=50, cheb_passes=2, beta_passes=1, bootstrap=True,
               bootstrap_min_dofs=2000)
+    jkw = dict(xfer_dtype="float32") if aligned else {}
     jcfg, cfg, jgs, gs, jdg, dg = _config1_pair(
-        JSolverConfig(backend="tpu", xfer_dtype="float32", **sk),
+        JSolverConfig(backend="tpu", **jkw, **sk),
         SolverConfig(device="cpu", **sk), mesh_min=3000)
     boots, coarse = {}, {}
 
@@ -144,12 +172,12 @@ def test_bootstrap_sweep_matches_jax(monkeypatch):
 
     def t_signed(Hc, *args, **kw):
         flip = np.einsum("bcnk,bcnk->bk", Hc, coarse["jax"]) < 0
-        coarse["flips"] = int(flip.sum())
         return t_seed(np.where(flip[:, None, None, :], -Hc, Hc), *args,
                       **kw)
 
-    monkeypatch.setattr(jv, "_seed_from_coarse", j_recorded)
-    monkeypatch.setattr(tv, "_seed_from_coarse", t_signed)
+    if aligned:
+        monkeypatch.setattr(jv, "_seed_from_coarse", j_recorded)
+        monkeypatch.setattr(tv, "_seed_from_coarse", t_signed)
     k = N_MODES + cfg.solver.extra_vectors
     shape = (3 * dg.n_dofs_padded, len(gs), k)
     k1, k2 = jax.random.split(jax.random.PRNGKey(11))
@@ -173,19 +201,20 @@ def test_bootstrap_sweep_matches_jax(monkeypatch):
     assert np.all(np.abs(beta - jbeta) <= 1e-5 * np.abs(jbeta))
     jX0 = np.asarray(jX0)
     assert X0.shape == jX0.shape == shape
-    assert np.abs(X0.numpy() - jX0).max() <= 5e-3 * np.abs(jX0).max()
-    _assert_same_modes(ref, out)
+    if aligned:
+        assert np.abs(X0.numpy() - jX0).max() <= 5e-3 * np.abs(jX0).max()
+    _assert_same_modes(ref, out, 1e-5 if aligned else 2e-5)
 
 
 @pytest.mark.parametrize("preset", ["balanced", "accuracy"])
-def test_preset_sweep_matches_jax(preset):
+def test_preset_sweep_matches_jax(preset, torch_threads):
     """The beta-round path (the active set, the beta jitter, the pooled
     polish, the qres gate): ``solver_preset(preset)`` in both packages,
     bootstrap off, the slice test's designs and mesh from the same start
     block, cheb_degree 50 and cheb_passes 2 to keep the test short. Equal
-    mode counts and n_eff within 1e-5 relative (measured 3e-8 balanced,
-    3e-7 accuracy). Neither package exposes its per-design round counts,
-    so they are not compared."""
+    mode counts and n_eff within 1e-5 relative (measured 3e-8 to 9e-8
+    balanced, 3e-7 accuracy). Neither package exposes its per-design
+    round counts, so they are not compared."""
     sk = dict(cheb_degree=50, cheb_passes=2, bootstrap=False)
     jcfg, cfg, jgs, gs, jdg, dg = _config1_pair(
         j_solver_preset(preset, backend="tpu", **sk),
