@@ -38,20 +38,35 @@ In order:
    element product, accumulate, park) in one launch on K1's plan: it
    must take one launch and repeat bit for bit, it is timed beside a
    cuSPARSE SpMM of the assembled m A m + park (I - m), and its host
-   time per call (no sync) is printed;
+   time per call (no sync) is printed. The vectorial sweep's assemble
+   and bounds kernels at the sweep's B = 8 designs: the batched K6
+   (``inv_eps_at_quadrature``, 1/eps of every design in one launch) must
+   equal its twin bit for bit, and its host time per call and device
+   time (torch.profiler) are printed beside the older per-design K6
+   launches and divides; K8 from the quadrature data
+   (``pencil_bounds_vector3``, every design's bound in one launch) must
+   repeat bit for bit and agree with its twin and with K8 on each
+   design's assembled (E, 18, 18) stack to 1e-5 relative, and sit no
+   further under its f64 twin than K8 may; it is timed beside that
+   per-design loop, with both peaks of device memory;
 4. runs the main path twice, warm-up then timed:
    ``TrueVectorialMaxwellSolver.solve_sweep`` over 8 wavelengths
    1.50-1.64 um in fast mode (cheb_degree 200, cheb_passes 2,
    beta_passes 1, bootstrap on). Every design must return guided modes
    with n_clad < n_eff < n_core, and every kernel's launch count must
    rise during the timed run: K1 exactly once per A(beta) apply (per
-   K4 step and per Rayleigh-Ritz pass), K2 only on the mass diagonal;
+   K4 step and per Rayleigh-Ritz pass), K2 only on the mass diagonal,
+   the batched K6 and the sweep's K8 exactly once per ``solve_sweep``
+   call (the bootstrap's coarse sweep and the fine one) and neither
+   the single-design K6 nor K8 on a stack; the sweep's phase seconds,
+   its ``assemble`` and ``bounds`` among them, are printed;
 5. solves a single-core step fiber (r 1.5 um, n_core 1.53, air clad)
    through the same path and holds HE11's n_eff to the exact vector
    dispersion (ops/analytic.vector_modes) within 1e-3 relative, the
    fast-mode accuracy class; then solves it with the balanced and the
    accuracy presets (``config.solver_preset``, B = 1), each within the
-   same 1e-3, and prints their seconds;
+   same 1e-3, and prints their seconds; the same per-sweep counts of
+   K6 and K8 hold in these solves;
 6. runs the dataset engine through the port's CLI at the production
    settings of configs/r5_dataset.yaml (fast mode, 9000-18000 mesh
    points, bucket band 0.20, sweep engine with the 2-bucket pipeline,
@@ -61,11 +76,14 @@ In order:
    every validated sample solved in a bucket sweep, at least one
    success with finite mux/demux losses, a CMT IL and a power
    conservation in (0, 1.05]), that K1-K4 launched during the run (K1
-   once per apply, K2 only on the mass diagonal), and
-   that a second run on the same directory solves nothing; then it holds
-   each kernel against its twin at the largest (B, k) the engine used,
-   on a mesh at the engine's settings (K5-K8 too, at the scalar
-   engine's k);
+   once per apply, K2 only on the mass diagonal; the batched K6 and the
+   sweep's K8 once per sweep), the run's summed ``assemble`` and
+   ``bounds`` seconds, and that a second run on the same directory
+   solves nothing; then it holds each kernel against its twin at the
+   largest (B, k) the engine used, on a mesh at the engine's settings
+   (K5-K8 too, at the scalar engine's k), and the sweep's K6 and K8 at
+   B = 5 taper slices of the 7-core design (core positions and radii
+   scaled 0.35-1.0, as the CMT slices move them);
 7. solves the scalar Helmholtz modes of the config-1 design (1.55 um)
    on the production mesh with ``ScalarHelmholtzSolver`` (10 modes, fast
    preset), device backend then hybrid (host ARPACK) backend; the two
@@ -138,6 +156,29 @@ def _event_ms(fn, reps: int = 10) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def _device_ms(fn, kernels: int, reps: int = 20):
+    """Device milliseconds per call of ``fn``, which launches ``kernels``
+    kernels: the CUDA intervals that torch.profiler records over ``reps``
+    calls (the event time of a short kernel counts the host's launch
+    rate as well). None unless the profiler recorded every launch: in a
+    long process it can come back with part of them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if len(spans) != kernels * reps:
+        return None
+    return sum(spans) / 1e3 / reps
 
 
 def _finite(*xs) -> bool:
@@ -252,15 +293,35 @@ def _scatter_csr(gs, E):
 def _watch_sweep():
     """While active, count the Rayleigh-Ritz passes, vectorial
     (``kernels.cheb_sweep_rr_impl``, one A(beta) apply each) and stacked
-    (``kernels.cheb_rr_pass_impl``, one stacked apply each), and record
-    the lane count of every K2 launch made through ``kernels``: the
-    port's own functions, wrapped (two sweep threads may call them)."""
+    (``kernels.cheb_rr_pass_impl``, one stacked apply each), and the
+    vectorial sweeps that assemble (``assemble_vector3_sweep`` as
+    ``solve_sweep`` calls it, once per call), record the lane count of
+    every K2 launch made through ``kernels``, and sum the seconds of
+    every named phase of every PhaseTimer (``phase_s``: the sweeps'
+    ``assemble`` and ``bounds`` among them): the port's own functions,
+    wrapped (two sweep threads may call them)."""
     from pl_fem_tpu_torch.ops import kernels as tkn
+    from pl_fem_tpu_torch.solvers import vectorial as tvec
+    from pl_fem_tpu_torch.utils import profiling
 
-    seen = {"rr_passes": 0, "stacked_passes": 0, "k2_lanes": set()}
+    seen = {"rr_passes": 0, "stacked_passes": 0, "sweeps": 0,
+            "k2_lanes": set(), "phase_s": {}}
     lock = threading.Lock()
     rr, srr = tkn.cheb_sweep_rr_impl, tkn.cheb_rr_pass_impl
     acc = tkn.accumulate
+    asm = tvec.assemble_vector3_sweep
+    phase = profiling.PhaseTimer.phase
+
+    @contextlib.contextmanager
+    def timed_phase(timer, name):
+        t0 = time.perf_counter()
+        try:
+            with phase(timer, name):
+                yield
+        finally:
+            with lock:
+                seen["phase_s"][name] = (seen["phase_s"].get(name, 0.0)
+                                         + time.perf_counter() - t0)
 
     def counted(fn, key):
         def wrapped(*args, **kw):
@@ -277,11 +338,38 @@ def _watch_sweep():
     tkn.cheb_sweep_rr_impl = counted(rr, "rr_passes")
     tkn.cheb_rr_pass_impl = counted(srr, "stacked_passes")
     tkn.accumulate = acc_seen
+    tvec.assemble_vector3_sweep = counted(asm, "sweeps")
+    profiling.PhaseTimer.phase = timed_phase
     try:
         yield seen
     finally:
         tkn.cheb_sweep_rr_impl, tkn.cheb_rr_pass_impl = rr, srr
         tkn.accumulate = acc
+        tvec.assemble_vector3_sweep = asm
+        profiling.PhaseTimer.phase = phase
+
+
+def _check_sweep_launches(what, launches, seen):
+    """The vectorial sweep's assemble and bounds: the batched K6 and K8
+    from the quadrature data launch exactly once per ``solve_sweep``
+    call that assembles, and the single-design K6 and K8 on an assembled
+    stack not at all; prints the summed assemble and bounds seconds."""
+    n6, n8 = (launches["inv_eps_at_quadrature"],
+              launches["pencil_bounds_vector3"])
+    ph = seen["phase_s"]
+    print(f"{what}: {seen['sweeps']} vectorial sweeps; batched K6 launches "
+          f"{n6}, K8 (quadrature data) launches {n8}, single-design K6 "
+          f"{launches['eps_at_quadrature']}, K8 on a stack "
+          f"{launches['pencil_bounds']}; assemble "
+          f"{ph.get('assemble', 0.0):.4f} s, bounds "
+          f"{ph.get('bounds', 0.0):.4f} s summed over the sweeps",
+          flush=True)
+    if not seen["sweeps"] or n6 != seen["sweeps"] or n8 != seen["sweeps"]:
+        raise AssertionError(f"{what}: the batched K6 and the sweep's K8 "
+                             f"did not launch once per sweep")
+    if launches["eps_at_quadrature"] or launches["pencil_bounds"]:
+        raise AssertionError(f"{what}: the vectorial path launched the "
+                             f"single-design K6 or K8 on a stack")
 
 
 def _check_apply_launches(what, launches, seen):
@@ -316,19 +404,15 @@ def _kernel_checks(dg, geoms, k, dev):
 
     from pl_fem_tpu_torch.ops import cuda_kernels as ck
     from pl_fem_tpu_torch.ops import kernels as tkn
-    from pl_fem_tpu_torch.ops.assembly import (assemble_vector3_qf,
+    from pl_fem_tpu_torch.ops.assembly import (assemble_vector3_sweep,
                                                eps_arrays, gather_scatter,
                                                grid_to_device)
-    from pl_fem_tpu_torch.ops.kernels import _N_REF, QFactorSweep, shape_table
+    from pl_fem_tpu_torch.ops.kernels import _N_REF, shape_table
 
     ga = grid_to_device(dg, dev)
     gs = gather_scatter(ga)
-    invs = []
-    for g in geoms:
-        qf, diag = assemble_vector3_qf(ga, eps_arrays(g.eps_params(), dev))
-        invs.append(qf.inv_eps)
-    qs = QFactorSweep(invJT=qf.invJT, w=qf.w, inv_eps=torch.stack(invs),
-                      gp=ga.grad_phys)
+    qs, diag = assemble_vector3_sweep(
+        ga, gs, [eps_arrays(g.eps_params(), dev) for g in geoms])
     B = len(geoms)
     D = dg.n_dofs_padded
     E = dg.elem_dofs.shape[0]
@@ -451,6 +535,171 @@ def _kernel_checks(dg, geoms, k, dev):
             lambda: tkn._apply_binv_fused_plain(*args),
             (2 * blk + mtab, 0))
     res["cheb_step"] = _cheb_checks(W, T1, T0, c, h, gen, "")
+    return res
+
+
+def _k8_vector3_work(E, Q, B):
+    """(bytes, f32 operations) of the sweep's K8 on E elements, Q points
+    and B designs, counted from the function's own inputs: gradients,
+    weights, shape table, 1/eps, betas, flags and Linv read once, B
+    bounds written. The operations are the least this function needs as
+    the kernel computes it (the congruence applied to the basis): per
+    (element, design) the weights w / eps (Q), the 171 distinct 1/eps
+    primitive entries of the transformed basis (2 Q each), the 324
+    entries' combination (~3 each) and absolute row sums (2 each), the
+    18 rows over |detJ| and their maximum; per element the basis
+    transform (3 Q vectors times the 6 x 6 Linv), the 171 u primitive
+    entries and |detJ| (12 Q)."""
+    nbytes = (4 * (12 * E * Q + E * Q + 6 * Q + B * E * Q + B + 36) + E
+              + 4 * B)
+    flops = (E * B * (Q + 342 * Q + 972 + 648 + 36)
+             + E * (216 * Q + 342 * Q + 12 * Q))
+    return nbytes, flops
+
+
+def _sweep_assembly_checks(dg, geoms, betas, dev):
+    """The vectorial sweep's assemble and bounds kernels on ``dg`` for the
+    designs ``geoms`` at the propagation constants ``betas``: the batched
+    K6 against its twin (bit for bit, one launch, repeatable), timed
+    beside the per-design K6 launches and divides it replaces and with
+    its host time per call; K8 from the quadrature data against its twin
+    (1e-5 relative), its f64 twin (BOUND_F64_SLACK) and K8 on each
+    design's assembled (E, 18, 18) stack (1e-5 relative), one launch,
+    repeatable, timed beside that per-design loop. Returns {name: row}."""
+    import numpy as np
+    import torch
+
+    from pl_fem_tpu_torch.ops import cuda_kernels as ck
+    from pl_fem_tpu_torch.ops import kernels as tkn
+    from pl_fem_tpu_torch.ops import triton_kernels as tk
+    from pl_fem_tpu_torch.ops.assembly import (eps_arrays, eps_batch,
+                                               grid_to_device,
+                                               quadrature_primitives,
+                                               vector3_stacked_A)
+
+    ga = grid_to_device(dg, dev)
+    eas = [eps_arrays(g.eps_params(), dev) for g in geoms]
+    batch = eps_batch(eas)
+    B, n_cores = batch.r2.shape
+    E, Q = ga.qp_w.shape
+    print(f"sweep assembly checks at E={E} Q={Q} B={B} (at most {n_cores} "
+          f"cores):", flush=True)
+    res = {}
+
+    # the batched K6: 1/eps of every design, bit for bit the twin's
+    n0 = tk.inv_eps_at_quadrature.launches
+    inv = tk.inv_eps_at_quadrature(ga.qp_xy, batch)
+    if tk.inv_eps_at_quadrature.launches != n0 + 1:
+        raise AssertionError("the batched K6 took more than one launch")
+    ref = tk.inv_eps_at_quadrature_plain(ga.qp_xy, batch)
+    if not torch.equal(inv, ref):
+        raise AssertionError(f"the batched K6 differs from its twin at "
+                             f"{int((inv != ref).sum())} points")
+    if not torch.equal(inv, tk.inv_eps_at_quadrature(ga.qp_xy, batch)):
+        raise AssertionError("the batched K6 is not bitwise repeatable")
+    print(f"  batched K6 equal to its twin at all {B * E * Q} values",
+          flush=True)
+    row = _compare(
+        f"K6 inv_eps_at_quadrature (batched, B = {B})",
+        lambda: tk.inv_eps_at_quadrature(ga.qp_xy, batch),
+        lambda: tk.inv_eps_at_quadrature_plain(ga.qp_xy, batch),
+        (8 * E * Q + 4 * B * E * Q + 12 * B * n_cores + 8 * B,
+         (6 * n_cores + 1) * B * E * Q))
+    row["host_ms"] = _host_ms(
+        lambda: tk.inv_eps_at_quadrature(ga.qp_xy, batch))
+    row["device_ms"] = _device_ms(
+        lambda: tk.inv_eps_at_quadrature(ga.qp_xy, batch), 1)
+    # what the sweep ran before: a single-design K6 and a divide per design
+    row["per_design_ms"] = _event_ms(
+        lambda: [1.0 / tk.eps_at_quadrature(ga.qp_xy, ea)[0] for ea in eas])
+    row["per_design_host_ms"] = _host_ms(
+        lambda: [1.0 / tk.eps_at_quadrature(ga.qp_xy, ea)[0] for ea in eas],
+        reps=50)
+    print(f"  batched K6 host time per call, no sync: {row['host_ms']:.4f} "
+          f"ms; device time (profiler) {row['device_ms']} ms; the {B} "
+          f"single-design K6 launches and divides it replaces: "
+          f"{row['per_design_ms']:.3f} ms (CUDA events), host "
+          f"{row['per_design_host_ms']:.4f} ms", flush=True)
+    res["inv_eps_at_quadrature"] = row
+
+    # K8 from the quadrature data of every design
+    b32 = torch.tensor(np.asarray(betas, dtype=np.float32), device=dev)
+    Linv = torch.as_tensor(tkn._LINV_REF, dtype=torch.float32, device=dev)
+    tr = float(np.trace(tkn._B_REF))
+    args = (ga.grad_phys, ga.qp_w, ga.shape_vals, inv, b32, 1.0,
+            ga.elem_valid, Linv, tr)
+    n0 = ck.pencil_bounds_vector3.launches
+    bnd = ck.pencil_bounds_vector3(*args)
+    if ck.pencil_bounds_vector3.launches != n0 + 1:
+        raise AssertionError("K8 (quadrature data) took more than one launch")
+    if not torch.equal(bnd, ck.pencil_bounds_vector3(*args)):
+        raise AssertionError("K8 (quadrature data) is not bitwise repeatable")
+    ref = ck.pencil_bounds_vector3_plain(*args)
+    rel = float(((bnd - ref).abs() / ref).max())
+    ref64 = ck.pencil_bounds_vector3_plain(
+        ga.grad_phys.double(), ga.qp_w.double(), ga.shape_vals.double(),
+        inv.double(), b32.double(), 1.0, ga.elem_valid, Linv.double(), tr)
+    under = float((1.0 - bnd.double() / ref64).max())
+    stacked = []
+    for i in range(B):
+        prim = quadrature_primitives(ga.grad_phys, ga.qp_w, ga.shape_vals,
+                                     inv[i])
+        A3 = vector3_stacked_A(prim, b32[i], np.float32(1.0))
+        stacked.append(ck.pencil_bounds(A3, prim["u_nn"], ga.elem_valid,
+                                        Linv, tr, 3))
+        del prim, A3
+    stacked = torch.stack(stacked)
+    rel_st = float(((bnd - stacked).abs() / stacked).max())
+    print(f"  K8 (quadrature data): bounds {bnd.tolist()}; max relative "
+          f"difference to the twin {rel:.3e}, to K8 on the assembled "
+          f"stacks {rel_st:.3e} (limit {KERNEL_RTOL:g}); at most "
+          f"{under:.3e} relative under the f64 twin (limit "
+          f"{BOUND_F64_SLACK:g})", flush=True)
+    if not (rel <= KERNEL_RTOL and rel_st <= KERNEL_RTOL):
+        raise AssertionError("K8 (quadrature data) disagrees with its twin "
+                             "or with K8 on the assembled stacks")
+    if not under <= BOUND_F64_SLACK:
+        raise AssertionError(f"K8 (quadrature data) sits {under:.3e} "
+                             f"relative under its f64 twin")
+    row = _compare(
+        f"K8 pencil_bounds_vector3 (B = {B}, from the quadrature data)",
+        lambda: ck.pencil_bounds_vector3(*args),
+        lambda: ck.pencil_bounds_vector3_plain(*args),
+        _k8_vector3_work(E, Q, B))
+    row.update(max_rel_err=rel, max_rel_err_vs_stacked=rel_st,
+               f64_under=under,
+               device_ms=_device_ms(lambda: ck.pencil_bounds_vector3(*args),
+                                    2),
+               host_ms=_host_ms(lambda: ck.pencil_bounds_vector3(*args)))
+    print(f"  K8 (quadrature data) device time (profiler, both launches) "
+          f"{row['device_ms']} ms, host time per call {row['host_ms']:.4f} "
+          f"ms", flush=True)
+
+    def old_loop():
+        # the sweep's bounds before: per design the primitives, the
+        # (E, 18, 18) stack and K8 on it
+        for i in range(B):
+            prim = quadrature_primitives(ga.grad_phys, ga.qp_w,
+                                         ga.shape_vals, inv[i])
+            A3 = vector3_stacked_A(prim, b32[i], np.float32(1.0))
+            ck.pencil_bounds(A3, prim["u_nn"], ga.elem_valid, Linv, tr, 3)
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ck.pencil_bounds_vector3(*args)
+    torch.cuda.synchronize()
+    row["peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    torch.cuda.reset_peak_memory_stats()
+    old_loop()
+    torch.cuda.synchronize()
+    row["per_design_peak_mib"] = ((torch.cuda.max_memory_allocated() - base)
+                                  / 2**20)
+    row["per_design_ms"] = _event_ms(old_loop, reps=3)
+    print(f"  the per-design loop it replaces (primitives, stack, K8 on "
+          f"it): {row['per_design_ms']:.3f} ms, {row['per_design_peak_mib']:.1f}"
+          f" MiB above the inputs at its peak; K8 from the quadrature data "
+          f"{row['peak_mib']:.3f} MiB", flush=True)
+    res["pencil_bounds_vector3"] = row
     return res
 
 
@@ -786,6 +1035,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     results_sc = _scalar_kernel_checks(dg, wl.config1_geom(1.55), k_c1, dev)
     torch.cuda.empty_cache()
+    results_sw = _sweep_assembly_checks(dg, geoms,
+                                        [g.k0 * 1.49 for g in geoms], dev)
+    torch.cuda.empty_cache()
 
     # -- 4. the main path: warm-up, then timed --------------------------
     wrappers = {"apply_vector3": ck.apply_vector3,
@@ -795,11 +1047,17 @@ def main() -> int:
                 "apply_stacked": ck.apply_stacked,
                 "eps_at_quadrature": tk.eps_at_quadrature,
                 "scalar_blocks": ck.scalar_blocks,
-                "pencil_bounds": ck.pencil_bounds}
-    # the vectorial paths run K1-K4, K6 and K8; the scalar paths K2-K8
-    on_vector = [n for n in wrappers
-                 if n not in ("apply_stacked", "scalar_blocks")]
-    on_scalar = [n for n in wrappers if n != "apply_vector3"]
+                "pencil_bounds": ck.pencil_bounds,
+                "inv_eps_at_quadrature": tk.inv_eps_at_quadrature,
+                "pencil_bounds_vector3": ck.pencil_bounds_vector3}
+    # the vectorial paths run K1-K4, the batched K6 and K8 from the
+    # quadrature data; the scalar paths K2-K8 (the single-design K6, K8
+    # on the assembled blocks)
+    sweep_only = ("inv_eps_at_quadrature", "pencil_bounds_vector3")
+    on_vector = ["apply_vector3", "accumulate", "mass_apply", "cheb_step",
+                 *sweep_only]
+    on_scalar = [n for n in wrappers
+                 if n != "apply_vector3" and n not in sweep_only]
 
     def reset_counts():
         for fn in wrappers.values():
@@ -821,7 +1079,8 @@ def main() -> int:
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_counts()
-    phases = {p: round(s, 3) for p, s in Solver.last_sweep_times.items()}
+    raw_phases = dict(Solver.last_sweep_times)
+    phases = {p: round(s, 3) for p, s in raw_phases.items()}
     print(f"sweep warm-up: {warm_s:.1f} s; timed: {dt:.2f} s = "
           f"{dt / wl.N_SWEEP:.3f} s/design; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
@@ -846,6 +1105,8 @@ def main() -> int:
             raise AssertionError(f"kernel {name} was not launched by the "
                                  f"main path")
     _check_apply_launches("the timed sweep", launches, seen)
+    _check_sweep_launches("the timed sweep", launches, seen)
+    sweep_phase_s = dict(seen["phase_s"])
 
     # -- 5. single-core step fiber against the exact dispersion ---------
     fiber = MCFGeometry(1, 8.0, 1.5, 1.53, 1.0, wavelength_um=1.55,
@@ -854,7 +1115,9 @@ def main() -> int:
                                mesh_target_points=FIBER_MESH_MIN)
     fgrid = MeshGenerator.generate(fiber, FIBER_REFINE, fcfg)
     fdg = export_device_grid(fgrid, 1024)
-    fmodes = Solver.solve_sweep([fiber], fdg, 8, fcfg)[0]
+    reset_counts()
+    with _watch_sweep() as fseen:
+        fmodes = Solver.solve_sweep([fiber], fdg, 8, fcfg)[0]
     # HE11 is the first hybrid root of order 1, labelled "HY1,1"
     he11 = dict(vector_modes(1.55, 1.5, 1.53, 1.0))["HY1,1"]
     if not fmodes:
@@ -869,9 +1132,13 @@ def main() -> int:
         pcfg = dataclasses.replace(fcfg, solver=solver_preset(
             preset, device="cuda"))
         t0 = time.perf_counter()
-        pmodes = Solver.solve_sweep([fiber], fdg, 8, pcfg)[0]
-        torch.cuda.synchronize()
+        with _watch_sweep() as pseen:
+            pmodes = Solver.solve_sweep([fiber], fdg, 8, pcfg)[0]
+            torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        fseen["sweeps"] += pseen["sweeps"]
+        for name, sec in pseen["phase_s"].items():
+            fseen["phase_s"][name] = fseen["phase_s"].get(name, 0.0) + sec
         if not pmodes:
             raise AssertionError(f"{preset} preset: the fiber returned no "
                                  f"modes")
@@ -882,6 +1149,7 @@ def main() -> int:
         if not rel <= FIBER_RTOL:
             raise AssertionError(f"fiber HE11 ({preset} preset) rel err "
                                  f"{rel:.2e} > {FIBER_RTOL}")
+    _check_sweep_launches("the fiber and its presets", read_counts(), fseen)
 
     # -- 6. the dataset engine through the CLI at the r5 settings -------
     launches_sweep = launches
@@ -927,6 +1195,8 @@ def main() -> int:
             raise AssertionError(f"kernel {name} was not launched by the "
                                  f"dataset engine")
     _check_apply_launches("the dataset run", launches, seen)
+    _check_sweep_launches("the dataset run", launches, seen)
+    dataset_phase_s = dict(seen["phase_s"])
     good = [r for r in records if r.success and _finite(
         r.IL_phys_mux_dB, r.MDL_phys_mux_dB, r.PDL_mux_dB,
         r.crosstalk_mux_dB, r.IL_phys_demux_dB, r.MDL_phys_demux_dB,
@@ -964,6 +1234,16 @@ def main() -> int:
         k_ds, dev)
     torch.cuda.empty_cache()
     launches_ds = launches
+    # the sweep's K6 and K8 on the same mesh at B = 5 taper slices of
+    # the 7-core design (positions and radii scaled as the CMT slices'
+    # are, down to the config's cmt_min_scale)
+    slices = [MCFGeometry(7, 8.0 * sc, 1.5 * sc, 1.535, 1.0,
+                          wavelength_um=1.55)
+              for sc in np.linspace(gen.config.cmt_min_scale, 1.0,
+                                    wl.DATASET_CMT_SLICES)]
+    results_sw_ds = _sweep_assembly_checks(
+        ds_dg, slices, [g.k0 * 1.49 for g in slices], dev)
+    torch.cuda.empty_cache()
 
     # -- 7. the scalar solver at full width: device, hybrid, fiber ------
     sgeom = wl.config1_geom(1.55)
@@ -1126,6 +1406,12 @@ def main() -> int:
                           "pl_fem_tpu/ops/assembly.py:327"),
         "pencil_bounds": ("cuda", src + "csrc/pencil_bounds.cu",
                           "pl_fem_tpu/ops/kernels.py:1120"),
+        "inv_eps_at_quadrature": ("triton", src + "triton_kernels.py",
+                                  "pl_fem_tpu/ops/assembly.py:126, "
+                                  "pl_fem_tpu/ops/assembly.py:356"),
+        "pencil_bounds_vector3": ("cuda", src + "csrc/pencil_bounds.cu",
+                                  "pl_fem_tpu/ops/kernels.py:1120, "
+                                  "pl_fem_tpu/solvers/vectorial.py:648-664"),
     }
     kernels = []
     for name, (route, source, replaces) in meta.items():
@@ -1133,7 +1419,14 @@ def main() -> int:
                    "dataset": launches_ds[name],
                    "scalar_solve": launches_scalar[name],
                    "scalar_dataset": launches_sds[name]}
-        if name in results:
+        if name in results_sw:
+            # the sweep's assemble and bounds: the dataset run's count,
+            # the config-1 sweep's B = 8 designs; the taper slices on the
+            # dataset's mesh beside them
+            row = {"launches": launches_ds[name], **results_sw[name],
+                   "dataset_shape": {"B": wl.DATASET_CMT_SLICES,
+                                     **results_sw_ds[name]}}
+        elif name in results:
             # K1-K4: the vectorial dataset run's count, the packed
             # shapes' numbers; the scalar solver's shapes beside them
             row = {"launches": launches_ds[name], **results[name],
@@ -1151,6 +1444,14 @@ def main() -> int:
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, **row,
                         "launches_by_path": by_path})
+    print("assemble / bounds seconds: config-1 sweep (outer sweep) "
+          f"{raw_phases.get('assemble')} / {raw_phases.get('bounds')}, both "
+          f"sweeps "
+          f"{sweep_phase_s.get('assemble', 0.0):.4f} / "
+          f"{sweep_phase_s.get('bounds', 0.0):.4f}; r5 dataset run summed "
+          f"{dataset_phase_s.get('assemble', 0.0):.4f} / "
+          f"{dataset_phase_s.get('bounds', 0.0):.4f} (card {card})",
+          flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -5,8 +5,10 @@ Port of pl_fem_tpu/ops/assembly.py for the vectorial sweep path and the
 scalar Helmholtz pencil. All functions take tensors already on the
 target device (``grid_to_device`` and ``grid_from_numpy`` put them
 there) and return tensors on it. The permittivity at the quadrature
-points is K6 (``triton_kernels.eps_at_quadrature``), the scalar element
-blocks K7 (``cuda_kernels.scalar_blocks``).
+points is K6 (``triton_kernels.eps_at_quadrature``; for a vectorial
+sweep ``assemble_vector3_sweep`` takes 1/eps of all its designs from
+one launch of ``triton_kernels.inv_eps_at_quadrature``), the scalar
+element blocks K7 (``cuda_kernels.scalar_blocks``).
 
 Matrix convention: blocks[e, i, j] couples test function i with trial
 function j of element e; global A[I, J] = sum_e blocks[e, i, j] over the
@@ -15,7 +17,7 @@ function j of element e; global A[I, J] = sum_e blocks[e, i, j] over the
 from __future__ import annotations
 
 import threading
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -104,6 +106,17 @@ class EpsArrays(NamedTuple):
     pml_thickness: torch.Tensor
     pml_strength: torch.Tensor
     pml_order: torch.Tensor
+
+
+class EpsBatch(NamedTuple):
+    """The permittivities of a sweep's B designs stacked for the batched
+    K6 (``eps_batch``): designs with fewer than N cores are padded with
+    r2 = -1, which no squared distance is below."""
+
+    positions: torch.Tensor     # (B, N, 2)
+    r2: torch.Tensor            # (B, N) squared core radii, -1 on padding
+    eps_core: torch.Tensor      # (B,)
+    eps_clad: torch.Tensor      # (B,)
 
 
 MASS_ROWS = 32        # DOF rows per block of the mass kernel (kRows)
@@ -364,6 +377,24 @@ def eps_arrays(p: EpsParams, device, dtype=torch.float32) -> EpsArrays:
         pml_strength=t(p.pml_strength), pml_order=t(float(p.pml_order)))
 
 
+def eps_batch(eas: Sequence[EpsArrays]) -> EpsBatch:
+    """Stack the EpsArrays of a sweep's designs (one device) for the
+    batched K6; r2 is ``core_radii ** 2`` as the single-design K6 forms
+    it, -1 where a design has fewer cores than the most."""
+    B = len(eas)
+    n = max(ea.positions.shape[0] for ea in eas)
+    like = eas[0].positions
+    pos = torch.zeros((B, n, 2), dtype=like.dtype, device=like.device)
+    r2 = torch.full((B, n), -1.0, dtype=like.dtype, device=like.device)
+    for b, ea in enumerate(eas):
+        m = ea.positions.shape[0]
+        pos[b, :m] = ea.positions
+        r2[b, :m] = ea.core_radii ** 2
+    return EpsBatch(positions=pos, r2=r2,
+                    eps_core=torch.stack([ea.eps_core for ea in eas]),
+                    eps_clad=torch.stack([ea.eps_clad for ea in eas]))
+
+
 def eps_at_quadrature(ga: GridArrays, eps: EpsArrays):
     """Relative permittivity (re, im) at every quadrature point (K6).
 
@@ -372,11 +403,6 @@ def eps_at_quadrature(ga: GridArrays, eps: EpsArrays):
     serves any (eps, k0).
     """
     return triton_kernels.eps_at_quadrature(ga.qp_xy, eps)
-
-
-def _wsum(ga: GridArrays, coeff, a, b):
-    """sum_q coeff[e,q] * a[e,q,i] * b[e,q,j] with quadrature weights."""
-    return torch.einsum("eq,eqi,eqj->eij", ga.qp_w * coeff, a, b)
 
 
 def vector3_primitives(ga: GridArrays, eps_re) -> Dict[str, torch.Tensor]:
@@ -390,19 +416,26 @@ def vector3_primitives(ga: GridArrays, eps_re) -> Dict[str, torch.Tensor]:
     u=1) and pair in (gxgx, gygy, gxgy, nn, ngx, ngy); pair [i, j] =
     test_i * trial_j.
     """
-    gx = ga.grad_phys[..., 0]
-    gy = ga.grad_phys[..., 1]
-    Nq = ga.shape_vals[None].expand(ga.qp_w.shape + (6,))
-    inv_eps = 1.0 / eps_re
-    one = torch.ones_like(eps_re)
+    return quadrature_primitives(ga.grad_phys, ga.qp_w, ga.shape_vals,
+                                 1.0 / eps_re)
+
+
+def quadrature_primitives(gp, w, N, inv_eps) -> Dict[str, torch.Tensor]:
+    """``vector3_primitives`` from the quadrature data: gradients gp
+    (E, Q, 6, 2), weights w (E, Q), shape table N (Q, 6) and one
+    design's 1/eps (E, Q)."""
+    gx = gp[..., 0]
+    gy = gp[..., 1]
+    Nq = N[None].expand(w.shape + (6,))
+    one = torch.ones_like(inv_eps)
     out = {}
-    for wname, w in (("i", inv_eps), ("u", one)):
-        out[wname + "_gxgx"] = _wsum(ga, w, gx, gx)
-        out[wname + "_gygy"] = _wsum(ga, w, gy, gy)
-        out[wname + "_gxgy"] = _wsum(ga, w, gx, gy)
-        out[wname + "_nn"] = _wsum(ga, w, Nq, Nq)
-        out[wname + "_ngx"] = _wsum(ga, w, Nq, gx)
-        out[wname + "_ngy"] = _wsum(ga, w, Nq, gy)
+    for wname, c in (("i", inv_eps), ("u", one)):
+        cw = w * c
+        for pair, a, b in (("gxgx", gx, gx), ("gygy", gy, gy),
+                           ("gxgy", gx, gy), ("nn", Nq, Nq),
+                           ("ngx", Nq, gx), ("ngy", Nq, gy)):
+            out[f"{wname}_{pair}"] = torch.einsum("eq,eqi,eqj->eij", cw,
+                                                  a, b)
     return out
 
 
@@ -441,23 +474,48 @@ def assemble_vector3_system(ga: GridArrays, ea: EpsArrays):
     return prim, diag, eps_im
 
 
+def mass_diagonal(ga: GridArrays, gs):
+    """The assembled consistent-mass diagonal sum_e sum_q w N_i^2 (D,),
+    1.0 off the interior: K2 at lane count 1 on the element terms, over
+    the grid's GatherScatter ``gs``. It depends on the quadrature weights
+    alone, so one serves every design of a sweep."""
+    from .kernels import _N_REF, _accumulate_fused
+
+    f32 = torch.float32
+    w = ga.qp_w.to(f32)
+    n2 = torch.as_tensor(_N_REF, dtype=f32, device=w.device) ** 2
+    diag_e = torch.einsum("eq,qi->ei", w, n2)
+    diag = _accumulate_fused(diag_e[:, :, None].contiguous(), gs)[:, 0]
+    return torch.where(ga.interior_mask > 0, diag, torch.ones_like(diag))
+
+
 def assemble_vector3_qf(ga: GridArrays, ea: EpsArrays):
-    """Quadrature factors + mass diagonal for the matrix-free path.
+    """Quadrature factors + mass diagonal of one design for the
+    matrix-free path (the sweep takes ``assemble_vector3_sweep``).
 
     The diagonal sum_e sum_q w N_i^2 goes through the K2 accumulate
     (lane count 1)."""
-    from .kernels import QFactor, _N_REF, _accumulate_fused
+    from .kernels import QFactor
 
     eps_re, _ = eps_at_quadrature(ga, ea)
     f32 = torch.float32
     qf = QFactor(invJT=ga.inv_jt.to(f32), w=ga.qp_w.to(f32),
                  inv_eps=(1.0 / eps_re).to(f32))
-    n2 = torch.as_tensor(_N_REF, dtype=f32, device=qf.w.device) ** 2
-    diag_e = torch.einsum("eq,qi->ei", qf.w, n2)
-    diag = _accumulate_fused(diag_e[:, :, None].contiguous(),
-                             gather_scatter(ga))[:, 0]
-    diag = torch.where(ga.interior_mask > 0, diag, torch.ones_like(diag))
-    return qf, diag
+    return qf, mass_diagonal(ga, gather_scatter(ga))
+
+
+def assemble_vector3_sweep(ga: GridArrays, gs, eas: Sequence[EpsArrays]):
+    """The sweep's quadrature factors and mass diagonal for the designs
+    ``eas`` on one grid: 1/eps of every design from one batched K6
+    launch (``triton_kernels.inv_eps_at_quadrature``) and the one mass
+    diagonal (``mass_diagonal``). Returns (QFactorSweep, diag)."""
+    from .kernels import QFactorSweep
+
+    inv_eps = triton_kernels.inv_eps_at_quadrature(ga.qp_xy, eps_batch(eas))
+    qs = QFactorSweep(invJT=ga.inv_jt.to(torch.float32),
+                      w=ga.qp_w.to(torch.float32), inv_eps=inv_eps,
+                      gp=ga.grad_phys)
+    return qs, mass_diagonal(ga, gs)
 
 
 def assemble_scalar_system(ga: GridArrays, ea: EpsArrays, k0):

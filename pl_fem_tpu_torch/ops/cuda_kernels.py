@@ -4,7 +4,8 @@ accumulate in one kernel), K2 the element -> DOF accumulate, K3 the
 fused DOF-centric mass apply (plain, or one step of the B^{-1}
 semi-iteration), K5 the stacked-block apply with its mask and park
 (element product and accumulate in one kernel), K7 the scalar pencil's
-element blocks, K8 the pencil's spectrum bound.
+element blocks, K8 the pencil's spectrum bound (on assembled blocks, and
+for the vectorial sweep from the quadrature data of all its designs).
 
 The sources are ``ops/csrc/*.cu``. At first use on a CUDA tensor they
 are compiled with ``nvcc`` for ``sm_90a`` (one compiler process per
@@ -39,9 +40,11 @@ import threading
 from pathlib import Path
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
-from .assembly import MASS_ROWS      # rows per block, kRows of mass_apply.cu
+from .assembly import (MASS_ROWS,    # rows per block, kRows of mass_apply.cu
+                       quadrature_primitives, vector3_stacked_A)
 
 _CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -61,6 +64,9 @@ _SIGNATURES = {
     "pl_scalar_blocks": [_P, _P, _P, _P, _F, _I, _I, _P, _P, _P],
     "pl_pencil_bounds_blocks": [_I, _I],
     "pl_pencil_bounds": [_P, _P, _P, _P, _F, _F, _I, _I, _P, _P, _P],
+    "pl_pencil_bounds_vector3_blocks": [_I],
+    "pl_pencil_bounds_vector3": [_P] * 5 + [_F, _P, _P, _F, _F]
+                                + [_I] * 3 + [_P] * 3,
 }
 _LIB: Optional[ctypes.CDLL] = None
 _LOCK = threading.Lock()
@@ -684,3 +690,67 @@ def pencil_bounds(Abig, Bblk, elem_valid, Linv, trace_ref: float, C: int):
 
 
 pencil_bounds.launches = 0
+
+
+def pencil_bounds_vector3_plain(gp, w, N, inv_eps, betas, alpha,
+                                elem_valid, Linv, trace_ref: float):
+    """Plain twin of the vectorial sweep's K8: per design b, the
+    primitives of ``inv_eps[b]`` (``assembly.quadrature_primitives``),
+    the stacked A(beta_b) (``vector3_stacked_A``) and
+    ``pencil_bounds_plain`` on it with u_nn as the mass blocks, as the
+    reference's per-design loop does. Returns (B,) in the inputs'
+    dtype."""
+    ap = np.float32(alpha) if w.dtype == torch.float32 else float(alpha)
+    out = []
+    for b in range(inv_eps.shape[0]):
+        prim = quadrature_primitives(gp, w, N, inv_eps[b])
+        A = vector3_stacked_A(prim, betas[b], ap)
+        out.append(pencil_bounds_plain(A, prim["u_nn"], elem_valid, Linv,
+                                       trace_ref, 3))
+        del prim, A
+    return torch.stack(out)
+
+
+def pencil_bounds_vector3(gp, w, N, inv_eps, betas, alpha: float,
+                          elem_valid, Linv, trace_ref: float):
+    """K8 for the vectorial sweep (``csrc/pencil_bounds.cu``): the
+    spectrum bound of A(beta_b) for every design b from the quadrature
+    data, without the primitives or the (E, 18, 18) stack.
+
+    gp (E, Q, 6, 2), w (E, Q), N (Q, 6), inv_eps (B, E, Q) and betas
+    (B,), all f32; elem_valid (E,) bool; Linv (6, 6) f32 the inverse
+    Cholesky factor of the reference mass, ``trace_ref`` its trace.
+    Returns (B,) f32 on the device of ``w``. Two launches (the rows of
+    every design, then each design's maximum over the blocks' partials)
+    count as one.
+    """
+    if w.device.type == "cpu":
+        return pencil_bounds_vector3_plain(gp, w, N, inv_eps, betas, alpha,
+                                           elem_valid, Linv, trace_ref)
+    dev = w.device
+    E, Q = w.shape
+    B = inv_eps.shape[0]
+    f32 = torch.float32
+    _require(gp, "gp", f32, dev, (E, Q, 6, 2))
+    _require(w, "w", f32, dev, (E, Q))
+    _require(N, "N", f32, dev, (Q, 6))
+    _require(inv_eps, "inv_eps", f32, dev, (B, E, Q))
+    _require(betas, "betas", f32, dev, (B,))
+    _require(elem_valid, "elem_valid", torch.bool, dev, (E,))
+    _require(Linv, "Linv", f32, dev, (6, 6))
+    L = lib()
+    nb = L.pl_pencil_bounds_vector3_blocks(E)
+    partial = torch.empty((B, nb), dtype=f32, device=dev)
+    out = torch.empty((B,), dtype=f32, device=dev)
+    rc = L.pl_pencil_bounds_vector3(
+        gp.data_ptr(), w.data_ptr(), N.data_ptr(), inv_eps.data_ptr(),
+        betas.data_ptr(), float(alpha), elem_valid.data_ptr(),
+        Linv.data_ptr(), float(trace_ref),
+        float(torch.finfo(f32).tiny) * 1e3, E, Q, B, partial.data_ptr(),
+        out.data_ptr(), _stream(dev))
+    _check(rc, "pencil_bounds_vector3")
+    _count(pencil_bounds_vector3)
+    return out
+
+
+pencil_bounds_vector3.launches = 0

@@ -24,7 +24,9 @@ the component-major block (C D, k): K5 (``apply_stacked``) for the
 whole apply with its mask and park in one launch, K3 once per component
 and degree step for B^{-1}, K4 for the recurrence on the block viewed as
 (C D, 1, 1, k). C = 1 is the scalar pencil. The spectrum bound both
-solvers start from is K8 (``pencil_bounds_elem``).
+solvers start from is K8: ``pencil_bounds_elem`` on assembled blocks
+(the scalar pencil), ``pencil_bounds_sweep`` from the quadrature factors
+of all designs of a vectorial sweep in one launch.
 """
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ import torch
 from .assembly import ApplyPlan, MassPlan
 from .cuda_kernels import (BinvStep, accumulate, apply_stacked,
                            apply_vector3, mass_apply, mass_apply_plain,
-                           pencil_bounds)
+                           pencil_bounds, pencil_bounds_vector3)
 from .quadrature import RULES, p2_shape
 from .triton_kernels import cheb_step
 
@@ -450,6 +452,20 @@ def pencil_bounds_elem(Abig, Bblk, elem_valid, C: int = 1):
                             _linv_ref_on(str(Abig.device)),
                             float(np.trace(_B_REF)), C)
     return np.float32(MASS_LO), np.float32(MASS_HI), bound_A
+
+
+def pencil_bounds_sweep(qs: QFactorSweep, N, elem_valid, betas, alpha):
+    """``pencil_bounds_elem``'s bound_A of A(beta_b) for every design of
+    a sweep, from its quadrature factors (K8 ``pencil_bounds_vector3``,
+    one launch): qs.gp, qs.w and qs.inv_eps (B, E, Q), N (Q, 6) the
+    grid's shape table, betas (B,) host values taken as float32. Returns
+    a (B,) tensor on the device of ``qs.w``."""
+    dev = qs.w.device
+    b32 = torch.as_tensor(np.asarray(betas, dtype=np.float32), device=dev)
+    return pencil_bounds_vector3(qs.gp, qs.w, N, qs.inv_eps, b32,
+                                 float(np.float32(alpha)), elem_valid,
+                                 _linv_ref_on(str(dev)),
+                                 float(np.trace(_B_REF)))
 
 
 # ---------------------------------------------------------------------------

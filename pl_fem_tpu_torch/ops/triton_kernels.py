@@ -1,5 +1,6 @@
 """The Triton kernels with their plain PyTorch twins: K4, the Chebyshev
-recurrence step, and K6, the permittivity at the quadrature points.
+recurrence step, and K6, the permittivity at the quadrature points (one
+design's Re and Im, or 1/Re of every design of a sweep).
 
 K4 replaces the step of pl_fem_tpu/ops/kernels.py ``_sweep_apply_t`` and
 ``_sweep_iterate``: given W = B^{-1} A(beta_b) V for the current vector
@@ -46,7 +47,11 @@ written per point). The in-core test squares with ``mul.rn.f32`` so that
 the compiler cannot fuse a square into the sum that follows: every point
 is decided exactly as the twin's separately rounded ops decide it. The
 PML polynomial keeps the twin's roundings too (IEEE square root and
-division, libdevice's ``powf``).
+division, libdevice's ``powf``). Its batched entry for the vectorial
+sweep, ``inv_eps_at_quadrature``, replaces the per-design loop of
+pl_fem_tpu/ops/assembly.py ``assemble_vector3_qf``'s 1/eps: one launch
+over a grid of point blocks by designs writes 1/Re(eps) of all B
+designs (the same core test, then an IEEE ``div_rn``).
 
 Triton is imported, and the kernels are built, inside the first launch,
 so this module imports on hosts without Triton. The launches hold a
@@ -201,7 +206,37 @@ def _build():
         tl.store(RE + offs, re, mask=m)
         tl.store(IM + offs, re * sigma, mask=m)
 
-    return {"step": _step, "colnorm": _colnorm, "eps": _eps}
+    @triton.jit
+    def _inv_eps(XY, POS, R2, EC, ECL, OUT, P, NMAX, BLOCK: tl.constexpr,
+                 NP: tl.constexpr):
+        offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
+        b = tl.program_id(1)
+        m = offs < P
+        x = tl.load(XY + 2 * offs, mask=m, other=0.0)
+        y = tl.load(XY + 2 * offs + 1, mask=m, other=0.0)
+        # the design's cores as one (NP,) load, padding at r2 = -1
+        n = tl.arange(0, NP)
+        nm = n < NMAX
+        c = b * NMAX + n
+        px = tl.load(POS + 2 * c, mask=nm, other=0.0)
+        py = tl.load(POS + 2 * c + 1, mask=nm, other=0.0)
+        r2 = tl.load(R2 + c, mask=nm, other=-1.0)
+        dx = x[:, None] - px[None, :]
+        dy = y[:, None] - py[None, :]
+        dx2 = tl.inline_asm_elementwise(
+            "mul.rn.f32 $0, $1, $2;", "=f,f,f", [dx, dx],
+            dtype=tl.float32, is_pure=True, pack=1)
+        dy2 = tl.inline_asm_elementwise(
+            "mul.rn.f32 $0, $1, $2;", "=f,f,f", [dy, dy],
+            dtype=tl.float32, is_pure=True, pack=1)
+        hit = (dx2 + dy2 <= r2[None, :]).to(tl.int32)
+        re = tl.where(tl.max(hit, axis=1) > 0, tl.load(EC + b),
+                      tl.load(ECL + b))
+        tl.store(OUT + b * P + offs, tl.div_rn(1.0 + tl.zeros_like(x), re),
+                 mask=m)
+
+    return {"step": _step, "colnorm": _colnorm, "eps": _eps,
+            "inv_eps": _inv_eps}
 
 
 def _kernels():
@@ -284,6 +319,7 @@ cheb_step.launches = 0
 # ---------------------------------------------------------------------------
 
 _EPS_BLOCK = 1024     # points per program
+_INV_EPS_TILE = 2048  # (points, cores) pairs per program of the batched K6
 
 
 def eps_at_quadrature_plain(qp_xy, eps):
@@ -347,3 +383,76 @@ def eps_at_quadrature(qp_xy, eps):
 
 
 eps_at_quadrature.launches = 0
+
+
+def inv_eps_at_quadrature_plain(qp_xy, eps_batch):
+    """Plain twin of the batched K6: 1 / eps_re (B, E, Q), design by
+    design ``eps_at_quadrature_plain``'s core test (padded cores, r2 =
+    -1, hold no point) and then ``1.0 / eps_re``."""
+    x = qp_xy[..., 0]
+    y = qp_xy[..., 1]
+    out = []
+    for b in range(eps_batch.r2.shape[0]):
+        pos = eps_batch.positions[b]
+        d2 = ((x[..., None] - pos[:, 0]) ** 2
+              + (y[..., None] - pos[:, 1]) ** 2)
+        in_core = torch.any(d2 <= eps_batch.r2[b], dim=-1)
+        eps_re = torch.where(in_core, eps_batch.eps_core[b],
+                             eps_batch.eps_clad[b])
+        out.append(1.0 / eps_re)
+    return torch.stack(out)
+
+
+def inv_eps_at_quadrature(qp_xy, eps_batch):
+    """K6 for a sweep: 1 / Re(eps) at every quadrature point of every
+    design, (B, E, Q) f32, in one launch.
+
+    qp_xy (E, Q, 2) f32; ``eps_batch`` an ``assembly.EpsBatch`` of f32
+    tensors on the same device: core positions (B, N, 2), squared radii
+    r2 (B, N) (-1 on the padding of designs with fewer than N cores) and
+    the core / cladding permittivities (B,). The PML does not enter
+    Re(eps). The divide is IEEE (``div_rn``), so the result is bit for
+    bit the twin's ``1.0 / eps_re``.
+
+    Triton, as the single-design K6: an elementwise pass. A program
+    takes a block of points and one design (a grid of point blocks by
+    designs, so even B = 1 fills the card), loads the design's cores as
+    one vector, tests a (points, cores) tile and writes the block's
+    values. Bound on the H100: bytes (two coordinates read, B values
+    written per point; the blocks of other designs find the coordinates
+    in L2).
+    """
+    if qp_xy.device.type == "cpu":
+        return inv_eps_at_quadrature_plain(qp_xy, eps_batch)
+    dev = qp_xy.device
+    E, Q, two = qp_xy.shape
+    B, n_cores = eps_batch.r2.shape
+    shapes = {"positions": (B, n_cores, 2), "r2": (B, n_cores),
+              "eps_core": (B,), "eps_clad": (B,)}
+    for name, t in [("qp_xy", qp_xy)] + [(n, getattr(eps_batch, n))
+                                         for n in shapes]:
+        if t.device != dev or t.dtype != torch.float32 \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 tensor "
+                             f"on {dev}")
+        if name in shapes and tuple(t.shape) != shapes[name]:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{shapes[name]}")
+    if two != 2:
+        raise ValueError(f"qp_xy must be (E, Q, 2), got {tuple(qp_xy.shape)}")
+    P = E * Q
+    if B < 1 or n_cores < 1 or B * P >= 2 ** 31:
+        raise ValueError(f"{B} designs of {n_cores} cores at {P} points is "
+                         f"not a batch the kernel takes")
+    out = torch.empty((B, E, Q), dtype=torch.float32, device=dev)
+    NP = max(2, 1 << (n_cores - 1).bit_length())
+    block = max(64, _INV_EPS_TILE // NP)        # a (points, cores) tile
+    with _LOCK:
+        _kernels()["inv_eps"][(-(-P // block), B)](
+            qp_xy, eps_batch.positions, eps_batch.r2, eps_batch.eps_core,
+            eps_batch.eps_clad, out, P, n_cores, BLOCK=block, NP=NP)
+        inv_eps_at_quadrature.launches += 1
+    return out
+
+
+inv_eps_at_quadrature.launches = 0

@@ -16,7 +16,12 @@ in ``pl_fem_tpu_torch/workloads.py``. Three measurements:
 2. one packed A(beta) apply (``kernels._apply_vector3_fused``, through
    whatever kernels the tree runs for it), timed with CUDA events at the
    config-1 sweep's shape (B = 8, k = 22) and at the dataset run's
-   largest (B = 5, k = 42) on a mesh at its settings;
+   largest (B = 5, k = 42) on a mesh at its settings; and the sweep's
+   assemble and bounds work as the tree's ``solve_sweep`` runs it (the
+   batched K6, the mass diagonal and K8 from the quadrature data where
+   the tree has ``assembly.assemble_vector3_sweep``, else the per-design
+   loops), host seconds to a synchronise, at the same two meshes (B = 8
+   and B = 5);
 3. the 7-core sample of the r5 dataset run's draw (the CLI's arguments
    from ``workloads.dataset_argv``, the sweep engine): once to warm up
    (Triton, coarse meshes), then once under ``torch.profiler``. It
@@ -186,7 +191,15 @@ def stacked_apply_times(reps: int = 50):
         gs = ta.gather_scatter(ga)
         ea = ta.eps_arrays(geom.eps_params(), dev)
         A1 = ta.assemble_scalar_system(ga, ea, geom.k0)[0]
-        prim = ta.assemble_vector3_system(ga, ea)[0]
+        # the vectorial blocks from the 1/eps the sweep assembles (trees
+        # before assemble_vector3_sweep: from assemble_vector3_system)
+        if hasattr(ta, "quadrature_primitives"):
+            qs, _ = _sweep_qf(ta, tk, ga, gs, [geom], dev)
+            prim = ta.quadrature_primitives(ga.grad_phys, ga.qp_w,
+                                            ga.shape_vals, qs.inv_eps[0])
+            del qs
+        else:
+            prim = ta.assemble_vector3_system(ga, ea)[0]
         A3 = ta.vector3_stacked_A(prim, np.float32(geom.k0 * 1.49),
                                   np.float32(1.0))
         del prim
@@ -200,6 +213,88 @@ def stacked_apply_times(reps: int = 50):
                                    "k": k, "C": C, "ms": ms}
             print(f"stacked apply at {name} (D={D}, C={C}, k={k}): "
                   f"{ms:.4f} ms", flush=True)
+    return out
+
+
+def _sweep_qf(ta, tk, ga, gs, geoms, dev):
+    """(QFactorSweep, mass diagonal) of ``geoms`` as the tree's
+    ``solve_sweep`` assembles them: one batched K6 and one diagonal, or,
+    in trees before it, ``assemble_vector3_qf`` per design."""
+    import torch
+
+    eas = [ta.eps_arrays(g.eps_params(), dev) for g in geoms]
+    if hasattr(ta, "assemble_vector3_sweep"):
+        return ta.assemble_vector3_sweep(ga, gs, eas)
+    qfs = [ta.assemble_vector3_qf(ga, ea) for ea in eas]
+    _, diag = qfs[-1]
+    return tk.QFactorSweep(invJT=qfs[0][0].invJT, w=qfs[0][0].w,
+                           inv_eps=torch.stack([q.inv_eps for q, _ in qfs]),
+                           gp=ga.grad_phys), diag
+
+
+def _sweep_bounds(ta, tk, ga, qs, geoms, betas, alpha):
+    """The per-design bounds as the tree's ``solve_sweep`` forms them:
+    K8 from the quadrature data in one launch, or, in trees before it,
+    the primitives, the (E, 18, 18) stack and K8 on it per design."""
+    import numpy as np
+    import torch
+
+    if hasattr(tk, "pencil_bounds_sweep"):
+        b = tk.pencil_bounds_sweep(qs, ga.shape_vals, ga.elem_valid, betas,
+                                   alpha)
+        return b.cpu().numpy()
+    out = []
+    for g, beta in zip(geoms, betas):
+        prim, _, _ = ta.assemble_vector3_system(
+            ga, ta.eps_arrays(g.eps_params(), ga.qp_w.device))
+        A = ta.vector3_stacked_A(prim, np.float32(beta), np.float32(alpha))
+        out.append(tk.pencil_bounds_elem(A, prim["u_nn"], ga.elem_valid,
+                                         C=3)[2])
+    return torch.stack(out).cpu().numpy()
+
+
+def sweep_setup_times(reps: int = 10):
+    """Host seconds (to a synchronise) of the sweep's assemble work
+    (``_sweep_qf``) and bounds (``_sweep_bounds``) on the config-1 mesh
+    at its B = 8 designs and on a mesh at the r5 settings at B = 5: the
+    median and range of ``reps`` calls after one warm-up."""
+    import numpy as np
+    import torch
+
+    from pl_fem_tpu_torch import workloads as wl
+    from pl_fem_tpu_torch.ops import assembly as ta
+    from pl_fem_tpu_torch.ops import kernels as tk
+
+    dev = torch.device("cuda")
+    _, _, dg1, geoms1 = wl.config1_sweep()
+    out = {}
+    for name, dg, geoms in (("config1", dg1, geoms1),
+                            ("r5", _r5_grid(),
+                             [wl.config1_geom(float(w))
+                              for w in np.linspace(1.53, 1.61, 5)])):
+        ga = ta.grid_to_device(dg, dev)
+        gs = ta.gather_scatter(ga)
+        betas = np.array([g.k0 * 1.49 for g in geoms])
+        t_asm, t_bnd = [], []
+        for i in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            qs, _ = _sweep_qf(ta, tk, ga, gs, geoms, dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _sweep_bounds(ta, tk, ga, qs, geoms, betas, 1.0)
+            t2 = time.perf_counter()
+            if i:
+                t_asm.append(t1 - t0)
+                t_bnd.append(t2 - t1)
+        out[name] = {"B": len(geoms), "assemble_s": t_asm,
+                     "bounds_s": t_bnd,
+                     "assemble_median_s": float(np.median(t_asm)),
+                     "bounds_median_s": float(np.median(t_bnd))}
+        print(f"sweep assemble / bounds at {name} (B={len(geoms)}): median "
+              f"{np.median(t_asm):.5f} s ({min(t_asm):.5f}-{max(t_asm):.5f})"
+              f" / {np.median(t_bnd):.5f} s ({min(t_bnd):.5f}-"
+              f"{max(t_bnd):.5f})", flush=True)
     return out
 
 
@@ -221,12 +316,7 @@ def apply_times(reps: int = 20):
         ga = ta.grid_to_device(dg, dev)
         gs = ta.gather_scatter(ga)
         geoms = [wl.config1_geom(float(w)) for w in np.linspace(1.5, 1.6, B)]
-        qfs = [ta.assemble_vector3_qf(ga, ta.eps_arrays(g.eps_params(),
-                                                        dev))[0]
-               for g in geoms]
-        qs = tk.QFactorSweep(invJT=qfs[0].invJT, w=qfs[0].w,
-                             inv_eps=torch.stack([q.inv_eps for q in qfs]),
-                             gp=ga.grad_phys)
+        qs, _ = _sweep_qf(ta, tk, ga, gs, geoms, dev)
         betas = torch.tensor([g.k0 * 1.49 for g in geoms], device=dev)
         parks = torch.full((B,), 50.0, device=dev)
         g = torch.Generator(device=dev).manual_seed(0)
@@ -349,6 +439,7 @@ def main(argv=None) -> int:
     else:
         result = {"card": card, "repo": str(repo),
                   "config1": config1_sweeps(SWEEPS),
+                  "sweep_setup_s": sweep_setup_times(),
                   "apply_ms": apply_times(),
                   "dataset_design": dataset_design()}
     line = json.dumps(result)

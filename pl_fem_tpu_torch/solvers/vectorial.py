@@ -40,12 +40,10 @@ from scipy.spatial import QhullError
 
 from ..config import SimulationConfig
 from ..ops.assembly import (
-    assemble_vector3_qf,
-    assemble_vector3_system,
+    assemble_vector3_sweep,
     eps_arrays,
     gather_scatter,
     grid_to_device,
-    vector3_stacked_A,
 )
 from ..ops.eig import scipy_eigsh_pencil
 from ..ops.femgrid import DeviceGrid, FEMGrid, MeshGenerator, export_device_grid
@@ -58,7 +56,7 @@ from ..ops.host_assembly import (
     scalar_pattern,
     vector3_prims_np,
 )
-from ..ops.kernels import QFactorSweep, pencil_bounds_elem, solve_lowest_sweep
+from ..ops.kernels import pencil_bounds_sweep, solve_lowest_sweep
 from .postproc import polarization_from_powers, polarization_label
 
 logger = logging.getLogger("pl_fem_tpu_torch.solvers.vectorial")
@@ -591,13 +589,11 @@ class TrueVectorialMaxwellSolver:
         with timer.phase("assemble"):
             ga = grid_to_device(dg, dev)
             gs = gather_scatter(ga)
-            invs, diag = [], None
-            for g in geometries:
-                qf_g, diag = assemble_vector3_qf(
-                    ga, eps_arrays(g.eps_params(), dev))
-                invs.append(qf_g.inv_eps)
-            qs = QFactorSweep(invJT=qf_g.invJT, w=qf_g.w,
-                              inv_eps=torch.stack(invs), gp=ga.grad_phys)
+            # 1/eps of every design in one batched K6 launch, and the one
+            # mass diagonal (it depends on the quadrature weights alone)
+            qs, diag = assemble_vector3_sweep(
+                ga, gs, [eps_arrays(g.eps_params(), dev)
+                         for g in geometries])
 
         betas = np.array([
             g.k0 * lp01_neff_estimate(g.k0, float(np.mean(g.core_radii)),
@@ -623,20 +619,13 @@ class TrueVectorialMaxwellSolver:
 
         # Per-design spectrum bounds: sweep members may differ in
         # n_core/n_clad/wavelength, so one design's Gershgorin bound can
-        # undershoot another's true spectral radius.
+        # undershoot another's true spectral radius. One K8 launch bounds
+        # A(beta_b) of every design from the quadrature factors.
         with timer.phase("bounds"):
-            bound_devs = []
-            for bix, g in enumerate(geometries):
-                prim, _, _ = assemble_vector3_system(
-                    ga, eps_arrays(g.eps_params(), dev))
-                big0 = vector3_stacked_A(prim, np.float32(betas[bix]),
-                                         np.float32(scfg.alpha_penalty))
-                _, _, bound = pencil_bounds_elem(big0, prim["u_nn"],
-                                                 ga.elem_valid, C=3)
-                bound_devs.append(bound)
-            del big0, prim
+            bounds = pencil_bounds_sweep(qs, ga.shape_vals, ga.elem_valid,
+                                         betas, scfg.alpha_penalty)
             # 1.1x margin covers the beta drift across beta passes
-            bounds = torch.stack(bound_devs).cpu().numpy() * 1.1
+            bounds = bounds.cpu().numpy() * 1.1
 
         with timer.phase("host_family"):
             if B == 1:

@@ -107,3 +107,70 @@ def test_mass_constants_match():
     assert tk._HRZ_SCALE == jk._HRZ_SCALE
     assert tk._LUMP_BOUND == jk._LUMP_BOUND
     assert np.array_equal(tk._B_REF, jk._B_REF)
+
+
+# ---------------------------------------------------------------------------
+# the vectorial sweep's assembly and bounds: 1/eps of every design in one
+# batched K6, the one mass diagonal, and K8 from the quadrature data
+# ---------------------------------------------------------------------------
+
+def _sweep_designs():
+    """Three designs on the module's mesh: a PML design and two without,
+    two wavelengths, two n_core values, and a 2-core design among 3-core
+    ones (the batch pads its cores with r2 = -1)."""
+    return [MCFGeometry(3, 8.0, 1.5, 1.535, 1.0, wavelength_um=1.55),
+            MCFGeometry(3, 8.0, 1.5, 1.50, 1.44, wavelength_um=1.60,
+                        use_complex_pml=False),
+            MCFGeometry(2, 8.0, 1.5, 1.52, 1.0, wavelength_um=1.55,
+                        use_complex_pml=False)]
+
+
+def test_batched_inv_eps_matches_jax(setup):
+    _, _, jga, tga = setup
+    geoms = _sweep_designs()
+    eas = [ta.eps_arrays(g.eps_params(), "cpu") for g in geoms]
+    batch = ta.eps_batch(eas)
+    assert batch.r2.shape == (3, 3) and float(batch.r2[2, 2]) == -1.0
+    qs, _ = ta.assemble_vector3_sweep(tga, ta.gather_scatter(tga), eas)
+    assert qs.inv_eps.shape == (3,) + tuple(tga.qp_w.shape)
+    for b, g in enumerate(geoms):
+        jqf, _ = ja.assemble_vector3_qf(
+            jga, ja.eps_arrays(g.eps_params(), jnp.float32))
+        assert _rel(jqf.inv_eps, qs.inv_eps[b].numpy()) <= RTOL, b
+        # the padded 2-core design reads no third core
+        tqf, _ = ta.assemble_vector3_qf(tga, eas[b])
+        assert torch.equal(qs.inv_eps[b], tqf.inv_eps), b
+    assert len(set(np.unique(qs.inv_eps[2].numpy()))) == 2
+
+
+def test_sweep_mass_diagonal_matches_jax(setup):
+    geoms, _, jga, tga = setup
+    _, jdiag = ja.assemble_vector3_qf(
+        jga, ja.eps_arrays(geoms[0].eps_params(), jnp.float32))
+    eas = [ta.eps_arrays(g.eps_params(), "cpu") for g in _sweep_designs()]
+    _, diag = ta.assemble_vector3_sweep(tga, ta.gather_scatter(tga), eas)
+    assert diag.shape == (tga.dof_valid.shape[0],)
+    assert _rel(jdiag, diag.numpy()) <= RTOL
+
+
+def test_sweep_bounds_match_jax_loop(setup):
+    """K8 from the quadrature data (its twin here) against the JAX
+    package's per-design loop: assemble_vector3_system, vector3_stacked_A
+    and pencil_bounds_elem at C = 3."""
+    _, _, jga, tga = setup
+    geoms = _sweep_designs()
+    betas = np.array([g.k0 * n for g, n in zip(geoms, (1.45, 1.47, 1.46))])
+    alpha = 1.0
+    eas = [ta.eps_arrays(g.eps_params(), "cpu") for g in geoms]
+    qs, _ = ta.assemble_vector3_sweep(tga, ta.gather_scatter(tga), eas)
+    got = tk.pencil_bounds_sweep(qs, tga.shape_vals, tga.elem_valid, betas,
+                                 alpha)
+    assert got.shape == (3,)
+    for b, g in enumerate(geoms):
+        jprim, _, _ = ja.assemble_vector3_system(
+            jga, ja.eps_arrays(g.eps_params(), jnp.float32))
+        jA = ja.vector3_stacked_A(jprim, jnp.float32(np.float32(betas[b])),
+                                  jnp.float32(alpha))
+        jb = float(jk.pencil_bounds_elem(jA, jprim["u_nn"], jga.elem_valid,
+                                         C=3)[2])
+        assert abs(float(got[b]) - jb) / jb <= RTOL, b

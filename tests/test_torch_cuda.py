@@ -760,3 +760,152 @@ def test_row_owned_kernels_from_two_threads(setup, scalar_setup, dev):
     assert errors == []
     assert rounds == [2000, 2000]
     assert [int(d) for d in differ] == [0, 0]
+
+
+# ---------------------------------------------------------------------------
+# the vectorial sweep's assembly and bounds: the batched K6 (1/eps of every
+# design) and K8 from the quadrature data of every design
+# ---------------------------------------------------------------------------
+
+def _sweep_geoms(B):
+    """B designs on the small mesh: wavelengths 1.50-1.60 um, n_core
+    alternating, PML on every other design, and every third design with
+    2 cores (the batch pads its cores)."""
+    return [MCFGeometry(2 if b % 3 == 2 else 3, 8.0, 1.5,
+                        (1.535, 1.52)[b % 2], 1.0,
+                        wavelength_um=1.50 + 0.1 * b / max(B - 1, 1),
+                        use_complex_pml=b % 2 == 0) for b in range(B)]
+
+
+@pytest.mark.parametrize("B", [1, 3, 8])
+def test_inv_eps_at_quadrature(setup, dev, B):
+    """The batched K6 == its twin bit for bit, in one launch, and equal
+    to the CPU twin and to 1 / the single-design K6's eps_re."""
+    ga = setup["ga"]
+    geoms = _sweep_geoms(B)
+    eas = [ta.eps_arrays(g.eps_params(), dev) for g in geoms]
+    batch = ta.eps_batch(eas)
+    n0 = trk.inv_eps_at_quadrature.launches
+    y = trk.inv_eps_at_quadrature(ga.qp_xy, batch)
+    assert trk.inv_eps_at_quadrature.launches == n0 + 1
+    assert y.shape == (B,) + tuple(ga.qp_w.shape)
+    assert torch.equal(y, trk.inv_eps_at_quadrature_plain(ga.qp_xy, batch))
+    assert torch.equal(y, trk.inv_eps_at_quadrature(ga.qp_xy, batch))
+    cpu = trk.inv_eps_at_quadrature(ga.qp_xy.cpu(), ta.EpsBatch(
+        *(t.cpu() for t in batch)))
+    assert torch.equal(y.cpu(), cpu)
+    for b, ea in enumerate(eas):
+        re, _ = trk.eps_at_quadrature(ga.qp_xy, ea)
+        assert torch.equal(y[b], 1.0 / re), b
+
+
+@pytest.mark.parametrize("B", [1, 5])
+def test_pencil_bounds_vector3(setup, dev, B):
+    """K8 from the quadrature data against its twin (1e-5 relative),
+    against the f64 twin (not below it by more than 1e-4 relative, the
+    f32 slack of test_pencil_bounds) and against K8 on each design's
+    assembled (E, 18, 18) stack (1e-5); one launch, bitwise repeatable."""
+    ga = setup["ga"]
+    geoms = _sweep_geoms(B)
+    qs, _ = ta.assemble_vector3_sweep(
+        ga, setup["gs"], [ta.eps_arrays(g.eps_params(), dev) for g in geoms])
+    betas = torch.tensor([g.k0 * 1.49 for g in geoms], device=dev)
+    Linv = torch.as_tensor(tk._LINV_REF, dtype=torch.float32, device=dev)
+    tr = float(np.trace(tk._B_REF))
+    args = (qs.gp, qs.w, ga.shape_vals, qs.inv_eps, betas, 1.0,
+            ga.elem_valid, Linv, tr)
+    n0 = ck.pencil_bounds_vector3.launches
+    b = ck.pencil_bounds_vector3(*args)
+    assert ck.pencil_bounds_vector3.launches == n0 + 1
+    assert b.shape == (B,) and b.device.type == "cuda"
+    assert torch.equal(b, ck.pencil_bounds_vector3(*args))
+    ref = ck.pencil_bounds_vector3_plain(*args)
+    assert float(((b - ref).abs() / ref).max()) <= 1e-5
+    ref64 = ck.pencil_bounds_vector3_plain(
+        qs.gp.double(), qs.w.double(), ga.shape_vals.double(),
+        qs.inv_eps.double(), betas.double(), 1.0, ga.elem_valid,
+        Linv.double(), tr)
+    assert bool((b.double() >= ref64 * (1.0 - 1e-4)).all())
+    for i in range(B):
+        prim = ta.quadrature_primitives(qs.gp, qs.w, ga.shape_vals,
+                                        qs.inv_eps[i])
+        A3 = ta.vector3_stacked_A(prim, np.float32(float(betas[i])),
+                                  np.float32(1.0))
+        old = ck.pencil_bounds(A3, prim["u_nn"], ga.elem_valid, Linv, tr, 3)
+        assert abs(float(b[i]) - float(old)) <= 1e-5 * float(old), i
+    assert torch.equal(tk.pencil_bounds_sweep(
+        qs, ga.shape_vals, ga.elem_valid, betas.cpu().numpy(), 1.0), b)
+
+
+def test_sweep_wrappers_refuse_bad_input(setup, dev):
+    """The batched K6 and the sweep's K8 raise on what their kernels do
+    not take: dtype, shape, device, betas of the wrong length."""
+    ga = setup["ga"]
+    geoms = _sweep_geoms(3)
+    batch = ta.eps_batch([ta.eps_arrays(g.eps_params(), dev)
+                          for g in geoms])
+    with pytest.raises(ValueError):             # f64 points
+        trk.inv_eps_at_quadrature(ga.qp_xy.double(), batch)
+    with pytest.raises(ValueError):             # r2 of another batch size
+        trk.inv_eps_at_quadrature(ga.qp_xy, batch._replace(
+            r2=batch.r2[:2].contiguous()))
+    with pytest.raises(ValueError):             # permittivities on the CPU
+        trk.inv_eps_at_quadrature(ga.qp_xy, batch._replace(
+            eps_core=batch.eps_core.cpu()))
+    qs, _ = ta.assemble_vector3_sweep(ga, setup["gs"], [
+        ta.eps_arrays(g.eps_params(), dev) for g in geoms])
+    betas = torch.tensor([g.k0 * 1.49 for g in geoms], device=dev)
+    Linv = torch.as_tensor(tk._LINV_REF, dtype=torch.float32, device=dev)
+
+    def call(**kw):
+        a = dict(gp=qs.gp, w=qs.w, N=ga.shape_vals, inv_eps=qs.inv_eps,
+                 betas=betas, alpha=1.0, elem_valid=ga.elem_valid,
+                 Linv=Linv, trace_ref=1.0)
+        a.update(kw)
+        return ck.pencil_bounds_vector3(**a)
+
+    with pytest.raises(TypeError):
+        call(inv_eps=qs.inv_eps.double())
+    with pytest.raises(ValueError):             # betas of the wrong length
+        call(betas=betas[:2].contiguous())
+    with pytest.raises(ValueError):             # 1/eps of another grid
+        call(inv_eps=qs.inv_eps[:, :-1].contiguous())
+    with pytest.raises(ValueError):             # flags on the CPU
+        call(elem_valid=ga.elem_valid.cpu())
+    with pytest.raises(ValueError):             # a shape table of Q - 1 rows
+        call(N=ga.shape_vals[:-1].contiguous())
+
+
+def test_vector_sweep_on_card_matches_cpu(setup, dev):
+    """TrueVectorialMaxwellSolver.solve_sweep of B = 3 designs on the card
+    (bootstrap off) launches the batched K6 and the sweep's K8 once each,
+    neither the single-design K6 nor the stacked K8, and matches the same
+    sweep on the CPU from the same start block: the n_modes wanted in
+    n_eff within 1e-5."""
+    from pl_fem_tpu_torch.config import SolverConfig
+    from pl_fem_tpu_torch.solvers import TrueVectorialMaxwellSolver as S
+
+    geoms = [MCFGeometry(3, 8.0, 1.5, 1.535, 1.0, wavelength_um=float(w))
+             for w in np.linspace(1.50, 1.60, 3)]
+    mesh = dict(mesh_min_points=400, mesh_target_points=1600,
+                mesh=MeshConfig(bucket_rounding=256))
+    dg = export_device_grid(MeshGenerator.generate(
+        geoms[0], 0.5, SimulationConfig(**mesh)), 256)
+    sk = dict(cheb_degree=50, cheb_passes=2, beta_passes=1, bootstrap=False)
+    n_modes = 6
+    k = n_modes + SolverConfig().extra_vectors
+    X0 = np.random.default_rng(7).standard_normal(
+        (3 * dg.n_dofs_padded, 3, k)).astype(np.float32)
+    counted = (trk.inv_eps_at_quadrature, ck.pencil_bounds_vector3,
+               trk.eps_at_quadrature, ck.pencil_bounds)
+    before = [f.launches for f in counted]
+    on_card = S.solve_sweep(geoms, dg, n_modes, SimulationConfig(
+        **mesh, solver=SolverConfig(device="cuda", **sk)), X0=X0)
+    assert [f.launches - n for f, n in zip(counted, before)] == [1, 1, 0, 0]
+    on_cpu = S.solve_sweep(geoms, dg, n_modes, SimulationConfig(
+        **mesh, solver=SolverConfig(device="cpu", **sk)), X0=X0)
+    for mc, mp in zip(on_card, on_cpu, strict=True):
+        assert len(mc) >= n_modes and len(mp) >= n_modes
+        ne_c = np.array([m["n_eff"] for m in mc[:n_modes]])
+        ne_p = np.array([m["n_eff"] for m in mp[:n_modes]])
+        assert np.abs(ne_c - ne_p).max() / ne_p.max() <= 1e-5
