@@ -24,7 +24,7 @@ In order:
    printed, and beside it the two passes that remain of the older
    three-pass apply (the mask and K2 with its epilogue). K2 also at
    L = 1 on the mass diagonal's element terms, as
-   ``assemble_vector3_qf`` feeds it; K3 in plain mode and as B^-1 of
+   ``assembly.mass_diagonal`` feeds it; K3 in plain mode and as B^-1 of
    degree 1 and 4, which must launch it exactly `degree` times and
    repeat bit for bit; K4's renorm step (T2 unscaled and its scale),
    plain step and the step after a renorm, and an 18-step recurrence
@@ -47,8 +47,10 @@ In order:
    (``pencil_bounds_vector3``, every design's bound in one launch) must
    repeat bit for bit and agree with its twin and with K8 on each
    design's assembled (E, 18, 18) stack to 1e-5 relative, and sit no
-   further under its f64 twin than K8 may; it is timed beside that
-   per-design loop, with both peaks of device memory;
+   further under its f64 twin than K8 may; on 1/eps scaled differently
+   per design it must give each design another bound than design 0's
+   data would; it is timed beside that per-design loop, with both peaks
+   of device memory;
 4. runs the main path twice, warm-up then timed:
    ``TrueVectorialMaxwellSolver.solve_sweep`` over 8 wavelengths
    1.50-1.64 um in fast mode (cheb_degree 200, cheb_passes 2,
@@ -294,8 +296,8 @@ def _watch_sweep():
     """While active, count the Rayleigh-Ritz passes, vectorial
     (``kernels.cheb_sweep_rr_impl``, one A(beta) apply each) and stacked
     (``kernels.cheb_rr_pass_impl``, one stacked apply each), and the
-    vectorial sweeps that assemble (``assemble_vector3_sweep`` as
-    ``solve_sweep`` calls it, once per call), record the lane count of
+    calls of ``TrueVectorialMaxwellSolver.solve_sweep`` (the bootstrap's
+    nested coarse sweep among them), record the lane count of
     every K2 launch made through ``kernels``, and sum the seconds of
     every named phase of every PhaseTimer (``phase_s``: the sweeps'
     ``assemble`` and ``bounds`` among them): the port's own functions,
@@ -309,7 +311,8 @@ def _watch_sweep():
     lock = threading.Lock()
     rr, srr = tkn.cheb_sweep_rr_impl, tkn.cheb_rr_pass_impl
     acc = tkn.accumulate
-    asm = tvec.assemble_vector3_sweep
+    solver = tvec.TrueVectorialMaxwellSolver
+    sweep = solver.__dict__["solve_sweep"]
     phase = profiling.PhaseTimer.phase
 
     @contextlib.contextmanager
@@ -338,21 +341,21 @@ def _watch_sweep():
     tkn.cheb_sweep_rr_impl = counted(rr, "rr_passes")
     tkn.cheb_rr_pass_impl = counted(srr, "stacked_passes")
     tkn.accumulate = acc_seen
-    tvec.assemble_vector3_sweep = counted(asm, "sweeps")
+    solver.solve_sweep = classmethod(counted(sweep.__func__, "sweeps"))
     profiling.PhaseTimer.phase = timed_phase
     try:
         yield seen
     finally:
         tkn.cheb_sweep_rr_impl, tkn.cheb_rr_pass_impl = rr, srr
         tkn.accumulate = acc
-        tvec.assemble_vector3_sweep = asm
+        solver.solve_sweep = sweep
         profiling.PhaseTimer.phase = phase
 
 
 def _check_sweep_launches(what, launches, seen):
     """The vectorial sweep's assemble and bounds: the batched K6 and K8
     from the quadrature data launch exactly once per ``solve_sweep``
-    call that assembles, and the single-design K6 and K8 on an assembled
+    call, and the single-design K6 and K8 on an assembled
     stack not at all; prints the summed assemble and bounds seconds."""
     n6, n8 = (launches["inv_eps_at_quadrature"],
               launches["pencil_bounds_vector3"])
@@ -492,7 +495,7 @@ def _kernel_checks(dg, geoms, k, dev):
     # the SpMM computes K2 without its epilogue: it is that row's yardstick
     res["accumulate"]["no_epilogue"] = bare
     # the mass diagonal's element terms sum_q w N_i^2, as
-    # assemble_vector3_qf builds them: K2's L = 1 row-per-thread path
+    # assembly.mass_diagonal builds them: K2's L = 1 row-per-thread path
     n2 = torch.as_tensor(_N_REF, dtype=torch.float32, device=dev) ** 2
     Yd = torch.einsum("eq,qi->ei", qs.w, n2)[:, :, None].contiguous()
     res["accumulate"]["diagonal"] = _compare(
@@ -557,6 +560,18 @@ def _k8_vector3_work(E, Q, B):
     return nbytes, flops
 
 
+def _sweep_betas(geoms):
+    """The propagation constants ``solve_sweep`` bounds its designs at
+    before a bootstrap refines them: k0 times the LP01 estimate of each
+    design's own mean core radius and indices."""
+    import numpy as np
+
+    from pl_fem_tpu_torch.solvers.vectorial import lp01_neff_estimate
+
+    return [g.k0 * lp01_neff_estimate(g.k0, float(np.mean(g.core_radii)),
+                                      g.n_core, g.n_clad) for g in geoms]
+
+
 def _sweep_assembly_checks(dg, geoms, betas, dev):
     """The vectorial sweep's assemble and bounds kernels on ``dg`` for the
     designs ``geoms`` at the propagation constants ``betas``: the batched
@@ -565,7 +580,12 @@ def _sweep_assembly_checks(dg, geoms, betas, dev):
     its host time per call; K8 from the quadrature data against its twin
     (1e-5 relative), its f64 twin (BOUND_F64_SLACK) and K8 on each
     design's assembled (E, 18, 18) stack (1e-5 relative), one launch,
-    repeatable, timed beside that per-design loop. Returns {name: row}."""
+    repeatable, timed beside that per-design loop. With B > 1 the
+    designs' bounds must differ, and on 1/eps scaled by 1 + b / 16 for
+    design b (every design then differs at every point, the maximum's
+    too) K8 must agree with its twin and give other bounds than K8 fed
+    design 0's scaled 1/eps for all: a kernel that reads one design's
+    data for every design fails here. Returns {name: row}."""
     import numpy as np
     import torch
 
@@ -634,9 +654,9 @@ def _sweep_assembly_checks(dg, geoms, betas, dev):
         raise AssertionError("K8 (quadrature data) took more than one launch")
     if not torch.equal(bnd, ck.pencil_bounds_vector3(*args)):
         raise AssertionError("K8 (quadrature data) is not bitwise repeatable")
-    ref = ck.pencil_bounds_vector3_plain(*args)
+    ref = tkn.pencil_bounds_vector3_plain(*args)
     rel = float(((bnd - ref).abs() / ref).max())
-    ref64 = ck.pencil_bounds_vector3_plain(
+    ref64 = tkn.pencil_bounds_vector3_plain(
         ga.grad_phys.double(), ga.qp_w.double(), ga.shape_vals.double(),
         inv.double(), b32.double(), 1.0, ga.elem_valid, Linv.double(), tr)
     under = float((1.0 - bnd.double() / ref64).max())
@@ -661,10 +681,30 @@ def _sweep_assembly_checks(dg, geoms, betas, dev):
     if not under <= BOUND_F64_SLACK:
         raise AssertionError(f"K8 (quadrature data) sits {under:.3e} "
                              f"relative under its f64 twin")
+    if B > 1 and bool((bnd == bnd[0]).all()):
+        raise AssertionError("the designs' bounds are all equal: the "
+                             "per-design data do not reach the maximum")
+    if B > 1:
+        scale = 1.0 + torch.arange(B, device=dev, dtype=torch.float32) / 16
+        inv_s = (inv * scale[:, None, None]).contiguous()
+        own = ck.pencil_bounds_vector3(*args[:3], inv_s, *args[4:])
+        rel_s = float(((own - tkn.pencil_bounds_vector3_plain(
+            *args[:3], inv_s, *args[4:])).abs() / own).max())
+        one = ck.pencil_bounds_vector3(
+            *args[:3], inv_s[:1].expand_as(inv_s).contiguous(), *args[4:])
+        print(f"  K8 on 1/eps scaled by 1 + b/16: {own.tolist()}, relative "
+              f"difference to the twin {rel_s:.3e}; from design 0's scaled "
+              f"1/eps for all: {one.tolist()}", flush=True)
+        if not rel_s <= KERNEL_RTOL:
+            raise AssertionError("K8 (quadrature data) disagrees with its "
+                                 "twin on the scaled 1/eps")
+        if bool((own[1:] == one[1:]).any()):
+            raise AssertionError("K8 gives a design the bound of design 0's "
+                                 "1/eps: it does not read each design's own")
     row = _compare(
         f"K8 pencil_bounds_vector3 (B = {B}, from the quadrature data)",
         lambda: ck.pencil_bounds_vector3(*args),
-        lambda: ck.pencil_bounds_vector3_plain(*args),
+        lambda: tkn.pencil_bounds_vector3_plain(*args),
         _k8_vector3_work(E, Q, B))
     row.update(max_rel_err=rel, max_rel_err_vs_stacked=rel_st,
                f64_under=under,
@@ -696,8 +736,9 @@ def _sweep_assembly_checks(dg, geoms, betas, dev):
                                   / 2**20)
     row["per_design_ms"] = _event_ms(old_loop, reps=3)
     print(f"  the per-design loop it replaces (primitives, stack, K8 on "
-          f"it): {row['per_design_ms']:.3f} ms, {row['per_design_peak_mib']:.1f}"
-          f" MiB above the inputs at its peak; K8 from the quadrature data "
+          f"it): {row['per_design_ms']:.3f} ms, "
+          f"{row['per_design_peak_mib']:.1f} MiB above the inputs at its "
+          f"peak; K8 from the quadrature data "
           f"{row['peak_mib']:.3f} MiB", flush=True)
     res["pencil_bounds_vector3"] = row
     return res
@@ -1035,8 +1076,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     results_sc = _scalar_kernel_checks(dg, wl.config1_geom(1.55), k_c1, dev)
     torch.cuda.empty_cache()
-    results_sw = _sweep_assembly_checks(dg, geoms,
-                                        [g.k0 * 1.49 for g in geoms], dev)
+    results_sw = _sweep_assembly_checks(dg, geoms, _sweep_betas(geoms), dev)
     torch.cuda.empty_cache()
 
     # -- 4. the main path: warm-up, then timed --------------------------
@@ -1236,13 +1276,13 @@ def main() -> int:
     launches_ds = launches
     # the sweep's K6 and K8 on the same mesh at B = 5 taper slices of
     # the 7-core design (positions and radii scaled as the CMT slices'
-    # are, down to the config's cmt_min_scale)
+    # are, down to the config's cmt_min_scale), each at its own beta
     slices = [MCFGeometry(7, 8.0 * sc, 1.5 * sc, 1.535, 1.0,
                           wavelength_um=1.55)
               for sc in np.linspace(gen.config.cmt_min_scale, 1.0,
                                     wl.DATASET_CMT_SLICES)]
-    results_sw_ds = _sweep_assembly_checks(
-        ds_dg, slices, [g.k0 * 1.49 for g in slices], dev)
+    results_sw_ds = _sweep_assembly_checks(ds_dg, slices,
+                                           _sweep_betas(slices), dev)
     torch.cuda.empty_cache()
 
     # -- 7. the scalar solver at full width: device, hybrid, fiber ------

@@ -43,8 +43,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .assembly import (MASS_ROWS,    # rows per block, kRows of mass_apply.cu
-                       quadrature_primitives, vector3_stacked_A)
+from .assembly import MASS_ROWS  # rows per block, kRows of mass_apply.cu
 
 _CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -692,25 +691,6 @@ def pencil_bounds(Abig, Bblk, elem_valid, Linv, trace_ref: float, C: int):
 pencil_bounds.launches = 0
 
 
-def pencil_bounds_vector3_plain(gp, w, N, inv_eps, betas, alpha,
-                                elem_valid, Linv, trace_ref: float):
-    """Plain twin of the vectorial sweep's K8: per design b, the
-    primitives of ``inv_eps[b]`` (``assembly.quadrature_primitives``),
-    the stacked A(beta_b) (``vector3_stacked_A``) and
-    ``pencil_bounds_plain`` on it with u_nn as the mass blocks, as the
-    reference's per-design loop does. Returns (B,) in the inputs'
-    dtype."""
-    ap = np.float32(alpha) if w.dtype == torch.float32 else float(alpha)
-    out = []
-    for b in range(inv_eps.shape[0]):
-        prim = quadrature_primitives(gp, w, N, inv_eps[b])
-        A = vector3_stacked_A(prim, betas[b], ap)
-        out.append(pencil_bounds_plain(A, prim["u_nn"], elem_valid, Linv,
-                                       trace_ref, 3))
-        del prim, A
-    return torch.stack(out)
-
-
 def pencil_bounds_vector3(gp, w, N, inv_eps, betas, alpha: float,
                           elem_valid, Linv, trace_ref: float):
     """K8 for the vectorial sweep (``csrc/pencil_bounds.cu``): the
@@ -722,12 +702,15 @@ def pencil_bounds_vector3(gp, w, N, inv_eps, betas, alpha: float,
     Cholesky factor of the reference mass, ``trace_ref`` its trace.
     Returns (B,) f32 on the device of ``w``. Two launches (the rows of
     every design, then each design's maximum over the blocks' partials)
-    count as one.
+    count as one. CUDA tensors only: its twin,
+    ``kernels.pencil_bounds_vector3_plain``, composes the assembly's
+    primitives and stack, and ``kernels.pencil_bounds_sweep`` takes it on
+    the CPU.
     """
-    if w.device.type == "cpu":
-        return pencil_bounds_vector3_plain(gp, w, N, inv_eps, betas, alpha,
-                                           elem_valid, Linv, trace_ref)
     dev = w.device
+    if dev.type != "cuda":
+        raise ValueError("pencil_bounds_vector3 takes CUDA tensors, got "
+                         f"{dev}")
     E, Q = w.shape
     B = inv_eps.shape[0]
     f32 = torch.float32

@@ -38,10 +38,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .assembly import ApplyPlan, MassPlan
+from .assembly import (ApplyPlan, MassPlan, quadrature_primitives,
+                       vector3_stacked_A)
 from .cuda_kernels import (BinvStep, accumulate, apply_stacked,
                            apply_vector3, mass_apply, mass_apply_plain,
-                           pencil_bounds, pencil_bounds_vector3)
+                           pencil_bounds, pencil_bounds_plain,
+                           pencil_bounds_vector3)
 from .quadrature import RULES, p2_shape
 from .triton_kernels import cheb_step
 
@@ -454,18 +456,37 @@ def pencil_bounds_elem(Abig, Bblk, elem_valid, C: int = 1):
     return np.float32(MASS_LO), np.float32(MASS_HI), bound_A
 
 
+def pencil_bounds_vector3_plain(gp, w, N, inv_eps, betas, alpha,
+                                elem_valid, Linv, trace_ref: float):
+    """Plain twin of the vectorial sweep's K8: per design b, the
+    primitives of ``inv_eps[b]`` (``assembly.quadrature_primitives``),
+    the stacked A(beta_b) (``vector3_stacked_A``) and
+    ``pencil_bounds_plain`` on it with u_nn as the mass blocks, as the
+    reference's per-design loop does. Returns (B,) in the inputs'
+    dtype."""
+    ap = np.float32(alpha) if w.dtype == torch.float32 else float(alpha)
+    out = []
+    for b in range(inv_eps.shape[0]):
+        prim = quadrature_primitives(gp, w, N, inv_eps[b])
+        A = vector3_stacked_A(prim, betas[b], ap)
+        out.append(pencil_bounds_plain(A, prim["u_nn"], elem_valid, Linv,
+                                       trace_ref, 3))
+        del prim, A
+    return torch.stack(out)
+
+
 def pencil_bounds_sweep(qs: QFactorSweep, N, elem_valid, betas, alpha):
     """``pencil_bounds_elem``'s bound_A of A(beta_b) for every design of
     a sweep, from its quadrature factors (K8 ``pencil_bounds_vector3``,
-    one launch): qs.gp, qs.w and qs.inv_eps (B, E, Q), N (Q, 6) the
-    grid's shape table, betas (B,) host values taken as float32. Returns
-    a (B,) tensor on the device of ``qs.w``."""
+    one launch; its twin on CPU tensors): qs.gp, qs.w and qs.inv_eps
+    (B, E, Q), N (Q, 6) the grid's shape table, betas (B,) host values
+    taken as float32. Returns a (B,) tensor on the device of ``qs.w``."""
     dev = qs.w.device
     b32 = torch.as_tensor(np.asarray(betas, dtype=np.float32), device=dev)
-    return pencil_bounds_vector3(qs.gp, qs.w, N, qs.inv_eps, b32,
-                                 float(np.float32(alpha)), elem_valid,
-                                 _linv_ref_on(str(dev)),
-                                 float(np.trace(_B_REF)))
+    bound = (pencil_bounds_vector3_plain if dev.type == "cpu"
+             else pencil_bounds_vector3)
+    return bound(qs.gp, qs.w, N, qs.inv_eps, b32, float(np.float32(alpha)),
+                 elem_valid, _linv_ref_on(str(dev)), float(np.trace(_B_REF)))
 
 
 # ---------------------------------------------------------------------------

@@ -191,15 +191,7 @@ def stacked_apply_times(reps: int = 50):
         gs = ta.gather_scatter(ga)
         ea = ta.eps_arrays(geom.eps_params(), dev)
         A1 = ta.assemble_scalar_system(ga, ea, geom.k0)[0]
-        # the vectorial blocks from the 1/eps the sweep assembles (trees
-        # before assemble_vector3_sweep: from assemble_vector3_system)
-        if hasattr(ta, "quadrature_primitives"):
-            qs, _ = _sweep_qf(ta, tk, ga, gs, [geom], dev)
-            prim = ta.quadrature_primitives(ga.grad_phys, ga.qp_w,
-                                            ga.shape_vals, qs.inv_eps[0])
-            del qs
-        else:
-            prim = ta.assemble_vector3_system(ga, ea)[0]
+        prim = ta.assemble_vector3_system(ga, ea)[0]
         A3 = ta.vector3_stacked_A(prim, np.float32(geom.k0 * 1.49),
                                   np.float32(1.0))
         del prim

@@ -819,9 +819,9 @@ def test_pencil_bounds_vector3(setup, dev, B):
     assert ck.pencil_bounds_vector3.launches == n0 + 1
     assert b.shape == (B,) and b.device.type == "cuda"
     assert torch.equal(b, ck.pencil_bounds_vector3(*args))
-    ref = ck.pencil_bounds_vector3_plain(*args)
+    ref = tk.pencil_bounds_vector3_plain(*args)
     assert float(((b - ref).abs() / ref).max()) <= 1e-5
-    ref64 = ck.pencil_bounds_vector3_plain(
+    ref64 = tk.pencil_bounds_vector3_plain(
         qs.gp.double(), qs.w.double(), ga.shape_vals.double(),
         qs.inv_eps.double(), betas.double(), 1.0, ga.elem_valid,
         Linv.double(), tr)
@@ -839,7 +839,8 @@ def test_pencil_bounds_vector3(setup, dev, B):
 
 def test_sweep_wrappers_refuse_bad_input(setup, dev):
     """The batched K6 and the sweep's K8 raise on what their kernels do
-    not take: dtype, shape, device, betas of the wrong length."""
+    not take: dtype, shape, device, betas of the wrong length; K8 also on
+    CPU tensors, which ``kernels.pencil_bounds_sweep`` gives its twin."""
     ga = setup["ga"]
     geoms = _sweep_geoms(3)
     batch = ta.eps_batch([ta.eps_arrays(g.eps_params(), dev)
@@ -874,6 +875,10 @@ def test_sweep_wrappers_refuse_bad_input(setup, dev):
         call(elem_valid=ga.elem_valid.cpu())
     with pytest.raises(ValueError):             # a shape table of Q - 1 rows
         call(N=ga.shape_vals[:-1].contiguous())
+    with pytest.raises(ValueError):             # CPU tensors: the twin's
+        call(gp=qs.gp.cpu(), w=qs.w.cpu(), N=ga.shape_vals.cpu(),
+             inv_eps=qs.inv_eps.cpu(), betas=betas.cpu(),
+             elem_valid=ga.elem_valid.cpu(), Linv=Linv.cpu())
 
 
 def test_vector_sweep_on_card_matches_cpu(setup, dev):
