@@ -7,7 +7,7 @@ In order:
 
 1. needs CUDA (raises otherwise) and prints the card's name and power
    limit as nvidia-smi reports them;
-2. builds the CUDA kernels (K1-K3, K5, K7, K8) from
+2. builds the CUDA kernels (K1-K3, K5, K7-K10) from
    ``pl_fem_tpu_torch/ops/csrc`` with nvcc, one compiler process per
    source, and prints the build seconds (Triton builds K4 and K6 at
    their first launches in step 3);
@@ -50,7 +50,17 @@ In order:
    further under its f64 twin than K8 may; on 1/eps scaled differently
    per design it must give each design another bound than design 0's
    data would; it is timed beside that per-design loop, with both peaks
-   of device memory;
+   of device memory. K9 (``seed_prolong``, the bootstrap seed in the
+   fused layout) on the coarse vectors and prolongation tables of one
+   real bootstrap of the 8 designs, and K10 (``ritz_residual``, the
+   Rayleigh-Ritz residuals and the pass gate) on the Rayleigh-Ritz of
+   the Ritz vectors of two filter passes (degree 200, B^-1 degree 4)
+   from a random block at B = 8, k = 22: K9 within 1e-5
+   of max|X| of its twin, K10's residuals within 1e-6 + 1e-3 of the
+   twin's and its gate the maximum of its own residuals over the wanted
+   set, within the same of the twin's; both bitwise repeatable, one
+   launch each, timed beside their twins and their byte bounds (no
+   single PyTorch call computes either);
 4. runs the main path twice, warm-up then timed:
    ``TrueVectorialMaxwellSolver.solve_sweep`` over 8 wavelengths
    1.50-1.64 um in fast mode (cheb_degree 200, cheb_passes 2,
@@ -60,7 +70,11 @@ In order:
    K4 step and per Rayleigh-Ritz pass), K2 only on the mass diagonal,
    the batched K6 and the sweep's K8 exactly once per ``solve_sweep``
    call (the bootstrap's coarse sweep and the fine one) and neither
-   the single-design K6 nor K8 on a stack; the sweep's phase seconds,
+   the single-design K6 nor K8 on a stack, K9 exactly once per
+   bootstrapped sweep, K10 once per Rayleigh-Ritz pass, and no layout
+   conversion inside ``kernels.cheb_sweep_rr_impl``; K1 and K4 are
+   printed beside their counts before K9 and K10 (the same passes:
+   504 / 500); the sweep's phase seconds,
    its ``assemble`` and ``bounds`` among them, are printed;
 5. solves a single-core step fiber (r 1.5 um, n_core 1.53, air clad)
    through the same path and holds HE11's n_eff to the exact vector
@@ -68,7 +82,7 @@ In order:
    fast-mode accuracy class; then solves it with the balanced and the
    accuracy presets (``config.solver_preset``, B = 1), each within the
    same 1e-3, and prints their seconds; the same per-sweep counts of
-   K6 and K8 hold in these solves;
+   K6, K8, K9 and K10 hold in these solves;
 6. runs the dataset engine through the port's CLI at the production
    settings of configs/r5_dataset.yaml (fast mode, 9000-18000 mesh
    points, bucket band 0.20, sweep engine with the 2-bucket pipeline,
@@ -83,15 +97,19 @@ In order:
    ``bounds`` seconds, and that a second run on the same directory
    solves nothing; then it holds each kernel against its twin at the
    largest (B, k) the engine used, on a mesh at the engine's settings
-   (K5-K8 too, at the scalar engine's k), and the sweep's K6 and K8 at
-   B = 5 taper slices of the 7-core design (core positions and radii
-   scaled 0.35-1.0, as the CMT slices move them);
+   (K5-K8 too, at the scalar engine's k), and the sweep's K6, K8, K9 and
+   K10 at B = 5 taper slices of the 7-core design (core positions and
+   radii scaled 0.35-1.0, as the CMT slices move them), K9 and K10 at
+   that k, with the peak device memory of one Rayleigh-Ritz pass there,
+   K10 against its twin's chain; the dataset run's launch counts are held
+   as in step 4;
 7. solves the scalar Helmholtz modes of the config-1 design (1.55 um)
    on the production mesh with ``ScalarHelmholtzSolver`` (10 modes, fast
    preset), device backend then hybrid (host ARPACK) backend; the two
    n_eff lists must agree to 5e-5, the kernels K2-K8 must launch in the
    device solve (K5 once per A apply: per K4 step and per Rayleigh-Ritz
-   pass; K2 only on the mass diagonal), and the single-core fiber's LP01
+   pass; K2 only on the mass diagonal; K10 once per pass), and the
+   single-core fiber's LP01
    must match the exact LP dispersion (ops/analytic.lp_modes) within
    1e-4 relative;
 8. runs the scalar dataset engine through the CLI (``--scalar
@@ -295,9 +313,13 @@ def _scatter_csr(gs, E):
 def _watch_sweep():
     """While active, count the Rayleigh-Ritz passes, vectorial
     (``kernels.cheb_sweep_rr_impl``, one A(beta) apply each) and stacked
-    (``kernels.cheb_rr_pass_impl``, one stacked apply each), and the
-    calls of ``TrueVectorialMaxwellSolver.solve_sweep`` (the bootstrap's
-    nested coarse sweep among them), record the lane count of
+    (``kernels.cheb_rr_pass_impl``, one stacked apply each), the calls of
+    ``TrueVectorialMaxwellSolver.solve_sweep`` (the bootstrap's nested
+    coarse sweep among them), the bootstraps that seeded a sweep
+    (``_bootstrap_sweep`` calls that returned a seed), the layout
+    conversions of ``kernels`` (``_fused_from_stacked``,
+    ``_stacked_from_fused``) in all and inside a vectorial
+    Rayleigh-Ritz, record the lane count of
     every K2 launch made through ``kernels``, and sum the seconds of
     every named phase of every PhaseTimer (``phase_s``: the sweeps'
     ``assemble`` and ``bounds`` among them): the port's own functions,
@@ -306,13 +328,17 @@ def _watch_sweep():
     from pl_fem_tpu_torch.solvers import vectorial as tvec
     from pl_fem_tpu_torch.utils import profiling
 
-    seen = {"rr_passes": 0, "stacked_passes": 0, "sweeps": 0,
-            "k2_lanes": set(), "phase_s": {}}
+    seen = {"rr_passes": 0, "stacked_passes": 0, "sweeps": 0, "boots": 0,
+            "conversions": 0, "rr_conversions": 0, "k2_lanes": set(),
+            "phase_s": {}}
     lock = threading.Lock()
+    in_rr = threading.local()
     rr, srr = tkn.cheb_sweep_rr_impl, tkn.cheb_rr_pass_impl
+    f2s, s2f = tkn._fused_from_stacked, tkn._stacked_from_fused
     acc = tkn.accumulate
     solver = tvec.TrueVectorialMaxwellSolver
     sweep = solver.__dict__["solve_sweep"]
+    boot = solver.__dict__["_bootstrap_sweep"]
     phase = profiling.PhaseTimer.phase
 
     @contextlib.contextmanager
@@ -338,17 +364,46 @@ def _watch_sweep():
             seen["k2_lanes"].add(Ye.shape[-1])
         return acc(Ye, *args, **kw)
 
-    tkn.cheb_sweep_rr_impl = counted(rr, "rr_passes")
+    def rr_seen(*args, **kw):
+        with lock:
+            seen["rr_passes"] += 1
+        in_rr.active = True
+        try:
+            return rr(*args, **kw)
+        finally:
+            in_rr.active = False
+
+    def conversion(fn):
+        def wrapped(*args, **kw):
+            with lock:
+                seen["conversions"] += 1
+                seen["rr_conversions"] += getattr(in_rr, "active", False)
+            return fn(*args, **kw)
+        return wrapped
+
+    def boot_seen(cls, *args, **kw):
+        out = boot.__func__(cls, *args, **kw)
+        if out is not None:
+            with lock:
+                seen["boots"] += 1
+        return out
+
+    tkn.cheb_sweep_rr_impl = rr_seen
     tkn.cheb_rr_pass_impl = counted(srr, "stacked_passes")
+    tkn._fused_from_stacked = conversion(f2s)
+    tkn._stacked_from_fused = conversion(s2f)
     tkn.accumulate = acc_seen
     solver.solve_sweep = classmethod(counted(sweep.__func__, "sweeps"))
+    solver._bootstrap_sweep = classmethod(boot_seen)
     profiling.PhaseTimer.phase = timed_phase
     try:
         yield seen
     finally:
         tkn.cheb_sweep_rr_impl, tkn.cheb_rr_pass_impl = rr, srr
+        tkn._fused_from_stacked, tkn._stacked_from_fused = f2s, s2f
         tkn.accumulate = acc
         solver.solve_sweep = sweep
+        solver._bootstrap_sweep = boot
         profiling.PhaseTimer.phase = phase
 
 
@@ -396,6 +451,35 @@ def _check_apply_launches(what, launches, seen):
     if seen["k2_lanes"] - {1}:
         raise AssertionError(f"{what}: K2 launched on lane blocks (the "
                              f"filter's), not only on the mass diagonal")
+
+
+def _check_seed_rr_launches(what, launches, seen, before=None):
+    """K9 launches exactly once per bootstrapped sweep (a
+    ``_bootstrap_sweep`` that returned a seed), K10 once per
+    Rayleigh-Ritz pass (vectorial and stacked), and no layout conversion
+    happens inside a vectorial Rayleigh-Ritz; prints K1 and K4 beside
+    ``before``, their counts in the same run before K9 and K10 (the
+    Rayleigh-Ritz in torch ops), where given."""
+    n9, n10 = launches["seed_prolong"], launches["ritz_residual"]
+    passes = seen["rr_passes"] + seen["stacked_passes"]
+    print(f"{what}: K9 launches {n9} for {seen['boots']} bootstrapped "
+          f"sweeps; K10 launches {n10} for {passes} Rayleigh-Ritz passes; "
+          f"layout conversions {seen['conversions']} in all, "
+          f"{seen['rr_conversions']} inside a vectorial Rayleigh-Ritz",
+          flush=True)
+    if before is not None:
+        print(f"{what}: K1 launches {launches['apply_vector3']}, K4 "
+              f"launches {launches['cheb_step']} (before K9 and K10: "
+              f"{before[0]} / {before[1]})", flush=True)
+    if n9 != seen["boots"]:
+        raise AssertionError(f"{what}: K9 did not launch once per "
+                             f"bootstrapped sweep")
+    if n10 != passes:
+        raise AssertionError(f"{what}: K10 did not launch once per "
+                             f"Rayleigh-Ritz pass")
+    if seen["rr_conversions"]:
+        raise AssertionError(f"{what}: the Rayleigh-Ritz converted the "
+                             f"layout")
 
 
 def _kernel_checks(dg, geoms, k, dev):
@@ -744,6 +828,195 @@ def _sweep_assembly_checks(dg, geoms, betas, dev):
     return res
 
 
+def _seed_checks(dg, geoms, n_modes, cfg, dev):
+    """K9 against its twin on the coarse Ritz vectors, seeded-column mask
+    and prolongation tables of one real bootstrap of ``geoms`` on ``dg``
+    (``_bootstrap_sweep``, its coarse sweep included), with fresh
+    standard-normal blocks: within 1e-5 of max|X|, one launch, bitwise
+    repeatable, the bootstrap's own seed fused (Dp, B, 3, k); timed
+    beside the twin and the byte bound. Returns the row."""
+    import numpy as np
+    import torch
+
+    from pl_fem_tpu_torch.ops import cuda_kernels as ck
+    from pl_fem_tpu_torch.ops import kernels as tkn
+    from pl_fem_tpu_torch.solvers import vectorial as tvec
+
+    seed = tvec._seed_from_coarse
+    got = {}
+
+    def recorded(Hc, colmask, Pcols, Pwts, *args, **kw):
+        got["inputs"] = (Hc, colmask, Pcols, Pwts)
+        return seed(Hc, colmask, Pcols, Pwts, *args, **kw)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    tvec._seed_from_coarse = recorded
+    try:
+        boot = tvec.TrueVectorialMaxwellSolver._bootstrap_sweep(
+            geoms, dg, n_modes, cfg, gen)
+    finally:
+        tvec._seed_from_coarse = seed
+    if boot is None:
+        raise AssertionError("the bootstrap did not seed the sweep")
+    Hc, colmask, cols, wts = got["inputs"]
+    Hc = torch.tensor(Hc, device=dev)
+    colmask = torch.tensor(colmask, device=dev)
+    B, _, nc, k = Hc.shape
+    Dp, W = cols.shape
+    if tuple(boot[0].shape) != (Dp, B, 3, k):
+        raise AssertionError(f"the bootstrap's seed has shape "
+                             f"{tuple(boot[0].shape)}, not the fused "
+                             f"{(Dp, B, 3, k)}")
+    R1, R2 = (torch.randn((Dp, B, 3, k), generator=gen, device=dev)
+              for _ in range(2))
+    scale = float(np.float32(0.05 / np.sqrt(np.float32(3 * Dp))))
+    args = (Hc, colmask, cols, wts, R1, R2, scale)
+    print(f"K9 seed checks at Dp={Dp} B={B} k={k} (coarse {nc} DOFs, W={W}, "
+          f"{int(colmask.sum())} seeded columns):", flush=True)
+    n0 = ck.seed_prolong.launches
+    X = ck.seed_prolong(*args)
+    if ck.seed_prolong.launches != n0 + 1:
+        raise AssertionError("K9 took more than one launch for one seed")
+    if not torch.equal(X, ck.seed_prolong(*args)):
+        raise AssertionError("K9 is not bitwise repeatable")
+    norms = torch.linalg.vector_norm(X, dim=(0, 2))
+    if not torch.allclose(norms, torch.ones_like(norms), atol=1e-5):
+        raise AssertionError("K9's columns are not unit")
+    # Hc, the mask, the tables, R1 and R2 read once, X written once; per
+    # element W gather FMAs, the six column sums and the blend
+    nbytes = 4 * (Hc.numel() + B * k + 2 * Dp * W + 3 * Dp * B * 3 * k)
+    row = _compare(f"K9 seed_prolong (Dp = {Dp}, B = {B}, k = {k})",
+                   lambda: ck.seed_prolong(*args),
+                   lambda: tkn.seed_prolong_plain(*args),
+                   (nbytes, (2 * W + 17) * Dp * B * 3 * k))
+    row.update(Dp=Dp, B=B, k=k, nc=nc, W=W,
+               device_ms=_device_ms(lambda: ck.seed_prolong(*args), 2),
+               host_ms=_host_ms(lambda: ck.seed_prolong(*args)))
+    print(f"  K9 device time (profiler, both launches) {row['device_ms']} "
+          f"ms, host time per call {row['host_ms']:.4f} ms", flush=True)
+    return row
+
+
+def _rr_checks(dg, geoms, k, n_wanted, cfg, dev):
+    """K10 against its twin on the Rayleigh-Ritz of the Ritz vectors of
+    two filter passes (``solve_lowest_sweep`` at the config's degree, B^-1
+    degree 4, from a random block: near-converged wanted columns) on
+    ``dg`` for the designs ``geoms`` at k columns, cuts and parks as
+    ``solve_sweep`` sets them: residuals within 1e-6 + 1e-3 of the
+    twin's, the gate within the same of the twin's gate and equal to the
+    maximum of K10's own residuals over the wanted set, one launch,
+    bitwise repeatable; timed beside the twin and the bound; the peak
+    device memory of one Rayleigh-Ritz pass (``cheb_sweep_rr_impl``)
+    with K10 and with the twin's chain in its place. Returns the row."""
+    import numpy as np
+    import torch
+
+    from pl_fem_tpu_torch.ops import cuda_kernels as ck
+    from pl_fem_tpu_torch.ops import kernels as tkn
+    from pl_fem_tpu_torch.ops.assembly import (assemble_vector3_sweep,
+                                               eps_arrays, gather_scatter,
+                                               grid_to_device)
+
+    ga = grid_to_device(dg, dev)
+    gs = gather_scatter(ga)
+    qs, diag = assemble_vector3_sweep(
+        ga, gs, [eps_arrays(g.eps_params(), dev) for g in geoms])
+    alpha = cfg.solver.alpha_penalty
+    betas = np.asarray(_sweep_betas(geoms))
+    cuts = np.array([min(b ** 2 / g.n_clad ** 2, 1.35 * g.k0 ** 2)
+                     for b, g in zip(betas, geoms)])
+    parks = 10.0 * np.maximum(cuts, 1.0)
+
+    def f32(a):
+        return torch.tensor(np.asarray(a, dtype=np.float32), device=dev)
+
+    betas_t, cuts_t, parks_t = f32(betas), f32(cuts), f32(parks)
+    bounds = tkn.pencil_bounds_sweep(qs, ga.shape_vals, ga.elem_valid,
+                                     betas, alpha).cpu().numpy() * 1.1
+    B, D = len(geoms), dg.n_dofs_padded
+    mask = ga.interior_mask
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    X = torch.randn((3 * D, B, k), generator=gen, device=dev)
+    _, Xr, _ = tkn.solve_lowest_sweep(
+        qs, gs, mask, diag, X, cuts, betas, alpha, bounds,
+        degree=cfg.solver.cheb_degree, passes=2, max_passes=2, parks=parks,
+        binv_degree=4, n_wanted=n_wanted)
+    Xff = tkn._fused_from_stacked(Xr)
+    del X, Xr
+    _, AQ, BQ, theta, Ys = tkn._sweep_ritz(qs, gs, mask, parks_t, betas_t,
+                                           float(alpha), Xff)
+    args = (AQ, BQ, Ys.contiguous(), theta.contiguous(), cuts_t, n_wanted)
+    n0 = ck.ritz_residual.launches
+    res, gate = ck.ritz_residual(*args)
+    if ck.ritz_residual.launches != n0 + 1:
+        raise AssertionError("K10 took more than one launch for one pass")
+    again = ck.ritz_residual(*args)
+    if not (torch.equal(res, again[0]) and torch.equal(gate, again[1])):
+        raise AssertionError("K10 is not bitwise repeatable")
+    ref, rgate = tkn.ritz_residual_plain(*args)
+    torch.cuda.synchronize()
+    err = float((res - ref).abs().max())
+    if not bool(((res - ref).abs() <= 1e-6 + 1e-3 * ref).all()):
+        raise AssertionError(f"K10: residuals {err:.3e} from the twin's, "
+                             f"over 1e-6 + 1e-3 res_twin")
+    gate_err = abs(float(gate) - float(rgate))
+    own = float(tkn._sweep_gate_maxres(args[3], res, cuts_t, n_wanted))
+    if not (gate_err <= 1e-6 + 1e-3 * float(rgate) and float(gate) == own):
+        raise AssertionError(f"K10: gate {float(gate)!r}, twin's "
+                             f"{float(rgate)!r}, of K10's residuals "
+                             f"{own!r}")
+    wanted = args[3] < cuts_t[:, None]
+    if n_wanted > 0:
+        wanted &= torch.arange(k, device=dev)[None] < n_wanted
+    wres = ref[wanted]
+    wres = [float(wres.min()), float(wres.max())] if wres.numel() else None
+    print(f"K10 checks at 3D={3 * D} B={B} k={k}: {int(wanted.sum())} "
+          f"wanted columns, their residuals {wres} (all "
+          f"{float(ref.min()):.3e} .. {float(ref.max()):.3e}); max|res - "
+          f"twin| = {err:.3e}; gate {float(gate):.6e}, twin's "
+          f"{float(rgate):.6e}", flush=True)
+    # AQ and BQ read once (Ys, theta, cuts and the outputs are KBs); per
+    # row and design 2 k^2 FMAs for u and v, 6 k for R and the squares
+    row = _compare(f"K10 ritz_residual (3D = {3 * D}, B = {B}, k = {k})",
+                   lambda: ck.ritz_residual(*args)[0],
+                   lambda: tkn.ritz_residual_plain(*args)[0],
+                   (8 * D * B * 3 * k + 4 * (B * k * k + 2 * B * k + B),
+                    B * 3 * D * (4 * k * k + 6 * k)))
+    row.update(gate_abs_err=gate_err, wanted=int(wanted.sum()),
+               wanted_res=wres,
+               device_ms=_device_ms(lambda: ck.ritz_residual(*args), 2),
+               host_ms=_host_ms(lambda: ck.ritz_residual(*args)))
+    print(f"  K10 device time (profiler, both launches) {row['device_ms']} "
+          f"ms, host time per call {row['host_ms']:.4f} ms", flush=True)
+    del res, ref, again, AQ, BQ
+
+    def peak_mib():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = tkn.cheb_sweep_rr_impl(qs, gs, mask, parks_t, betas_t,
+                                     float(alpha), Xff, cuts_t, n_wanted)
+        torch.cuda.synchronize()
+        del out
+        return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+    row["rr_pass_peak_mib"] = peak_mib()
+    kernel = tkn.ritz_residual
+    tkn.ritz_residual = tkn.ritz_residual_plain
+    try:
+        row["rr_pass_peak_mib_twin"] = peak_mib()
+    finally:
+        tkn.ritz_residual = kernel
+    print(f"  one Rayleigh-Ritz pass at 3D={3 * D} B={B} k={k}: peak device "
+          f"memory {row['rr_pass_peak_mib']:.1f} MiB above its inputs with "
+          f"K10, {row['rr_pass_peak_mib_twin']:.1f} MiB with the twin's "
+          f"chain (AQ Ys, BQ Ys, R)", flush=True)
+    row.update(D=D, B=B, k=k)
+    return row
+
+
 def _cheb_checks(W, T1, T0, c, h, gen, tag):
     """K4 against its twin on (D, B, C, k) blocks: the renorm step (T2
     and its scale s), the plain step, the step after a renorm (both
@@ -1078,6 +1351,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     results_sw = _sweep_assembly_checks(dg, geoms, _sweep_betas(geoms), dev)
     torch.cuda.empty_cache()
+    results_rr = {
+        "seed_prolong": _seed_checks(dg, geoms, wl.N_MODES, cfg, dev),
+        "ritz_residual": _rr_checks(dg, geoms, k_c1,
+                                    min(k_c1, wl.N_MODES + 4), cfg, dev)}
+    torch.cuda.empty_cache()
 
     # -- 4. the main path: warm-up, then timed --------------------------
     wrappers = {"apply_vector3": ck.apply_vector3,
@@ -1089,13 +1367,16 @@ def main() -> int:
                 "scalar_blocks": ck.scalar_blocks,
                 "pencil_bounds": ck.pencil_bounds,
                 "inv_eps_at_quadrature": tk.inv_eps_at_quadrature,
-                "pencil_bounds_vector3": ck.pencil_bounds_vector3}
-    # the vectorial paths run K1-K4, the batched K6 and K8 from the
-    # quadrature data; the scalar paths K2-K8 (the single-design K6, K8
-    # on the assembled blocks)
-    sweep_only = ("inv_eps_at_quadrature", "pencil_bounds_vector3")
+                "pencil_bounds_vector3": ck.pencil_bounds_vector3,
+                "seed_prolong": ck.seed_prolong,
+                "ritz_residual": ck.ritz_residual}
+    # the vectorial paths run K1-K4, the batched K6, K8 from the
+    # quadrature data, K9 and K10; the scalar paths K2-K8 (the
+    # single-design K6, K8 on the assembled blocks) and K10
+    sweep_only = ("inv_eps_at_quadrature", "pencil_bounds_vector3",
+                  "seed_prolong")
     on_vector = ["apply_vector3", "accumulate", "mass_apply", "cheb_step",
-                 *sweep_only]
+                 "ritz_residual", *sweep_only]
     on_scalar = [n for n in wrappers
                  if n != "apply_vector3" and n not in sweep_only]
 
@@ -1146,6 +1427,7 @@ def main() -> int:
                                  f"main path")
     _check_apply_launches("the timed sweep", launches, seen)
     _check_sweep_launches("the timed sweep", launches, seen)
+    _check_seed_rr_launches("the timed sweep", launches, seen, (504, 500))
     sweep_phase_s = dict(seen["phase_s"])
 
     # -- 5. single-core step fiber against the exact dispersion ---------
@@ -1176,7 +1458,9 @@ def main() -> int:
             pmodes = Solver.solve_sweep([fiber], fdg, 8, pcfg)[0]
             torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        fseen["sweeps"] += pseen["sweeps"]
+        for key in ("sweeps", "boots", "rr_passes", "stacked_passes",
+                    "conversions", "rr_conversions"):
+            fseen[key] += pseen[key]
         for name, sec in pseen["phase_s"].items():
             fseen["phase_s"][name] = fseen["phase_s"].get(name, 0.0) + sec
         if not pmodes:
@@ -1190,6 +1474,8 @@ def main() -> int:
             raise AssertionError(f"fiber HE11 ({preset} preset) rel err "
                                  f"{rel:.2e} > {FIBER_RTOL}")
     _check_sweep_launches("the fiber and its presets", read_counts(), fseen)
+    _check_seed_rr_launches("the fiber and its presets", read_counts(),
+                            fseen)
 
     # -- 6. the dataset engine through the CLI at the r5 settings -------
     launches_sweep = launches
@@ -1236,6 +1522,8 @@ def main() -> int:
                                  f"dataset engine")
     _check_apply_launches("the dataset run", launches, seen)
     _check_sweep_launches("the dataset run", launches, seen)
+    _check_seed_rr_launches("the dataset run", launches, seen,
+                            (10084, 10000))
     dataset_phase_s = dict(seen["phase_s"])
     good = [r for r in records if r.success and _finite(
         r.IL_phys_mux_dB, r.MDL_phys_mux_dB, r.PDL_mux_dB,
@@ -1284,6 +1572,15 @@ def main() -> int:
     results_sw_ds = _sweep_assembly_checks(ds_dg, slices,
                                            _sweep_betas(slices), dev)
     torch.cuda.empty_cache()
+    # K9 and K10 there at the engine's k: its CMT sweeps gate n_modes + 4
+    extra = gen.config.solver.extra_vectors
+    results_rr_ds = {
+        "seed_prolong": _seed_checks(ds_dg, slices, k_ds - extra,
+                                     gen.config, dev),
+        "ritz_residual": _rr_checks(ds_dg, slices, k_ds,
+                                    min(k_ds, k_ds - extra + 4), gen.config,
+                                    dev)}
+    torch.cuda.empty_cache()
 
     # -- 7. the scalar solver at full width: device, hybrid, fiber ------
     sgeom = wl.config1_geom(1.55)
@@ -1314,6 +1611,7 @@ def main() -> int:
     if launches_scalar["apply_vector3"]:
         raise AssertionError("the scalar solve launched K1")
     _check_apply_launches("the scalar solve", launches_scalar, seen)
+    _check_seed_rr_launches("the scalar solve", launches_scalar, seen)
     hcfg = dataclasses.replace(cfg, solver=dataclasses.replace(
         cfg.solver, backend="hybrid"))
     reset_counts()
@@ -1401,6 +1699,7 @@ def main() -> int:
             raise AssertionError(f"kernel {name} was not launched by the "
                                  f"scalar dataset engine")
     _check_apply_launches("the scalar dataset run", launches_sds, seen)
+    _check_seed_rr_launches("the scalar dataset run", launches_sds, seen)
     sgood = [r for r in srecords if r.success and _finite(
         r.IL_phys_mux_dB, r.MDL_phys_mux_dB, r.crosstalk_mux_dB,
         r.IL_phys_demux_dB, r.n_eff_max)]
@@ -1452,6 +1751,11 @@ def main() -> int:
         "pencil_bounds_vector3": ("cuda", src + "csrc/pencil_bounds.cu",
                                   "pl_fem_tpu/ops/kernels.py:1120, "
                                   "pl_fem_tpu/solvers/vectorial.py:648-664"),
+        "seed_prolong": ("cuda", src + "csrc/seed_prolong.cu",
+                         "pl_fem_tpu/solvers/vectorial.py:125"),
+        "ritz_residual": ("cuda", src + "csrc/ritz_residual.cu",
+                          "pl_fem_tpu/ops/kernels.py:759, "
+                          "pl_fem_tpu/ops/kernels.py:962"),
     }
     kernels = []
     for name, (route, source, replaces) in meta.items():
@@ -1459,7 +1763,12 @@ def main() -> int:
                    "dataset": launches_ds[name],
                    "scalar_solve": launches_scalar[name],
                    "scalar_dataset": launches_sds[name]}
-        if name in results_sw:
+        if name in results_rr:
+            # K9 and K10: the vectorial dataset run's count, the config-1
+            # sweep's shapes; the r5 mesh's B = 5 slices at its k beside
+            row = {"launches": launches_ds[name], **results_rr[name],
+                   "dataset_shape": results_rr_ds[name]}
+        elif name in results_sw:
             # the sweep's assemble and bounds: the dataset run's count,
             # the config-1 sweep's B = 8 designs; the taper slices on the
             # dataset's mesh beside them

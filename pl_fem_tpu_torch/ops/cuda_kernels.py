@@ -5,7 +5,11 @@ fused DOF-centric mass apply (plain, or one step of the B^{-1}
 semi-iteration), K5 the stacked-block apply with its mask and park
 (element product and accumulate in one kernel), K7 the scalar pencil's
 element blocks, K8 the pencil's spectrum bound (on assembled blocks, and
-for the vectorial sweep from the quadrature data of all its designs).
+for the vectorial sweep from the quadrature data of all its designs), K9
+the vectorial sweep's bootstrap seed and K10 the Rayleigh-Ritz residual
+norms with the pass gate. K8's sweep entry, K9 and K10 take CUDA tensors
+only: their twins live in ``kernels`` beside the functions that compose
+them, which pick the twin on the CPU.
 
 The sources are ``ops/csrc/*.cu``. At first use on a CUDA tensor they
 are compiled with ``nvcc`` for ``sm_90a`` (one compiler process per
@@ -66,6 +70,10 @@ _SIGNATURES = {
     "pl_pencil_bounds_vector3_blocks": [_I],
     "pl_pencil_bounds_vector3": [_P] * 5 + [_F, _P, _P, _F, _F]
                                 + [_I] * 3 + [_P] * 3,
+    "pl_seed_prolong_blocks": [_I] * 3,
+    "pl_seed_prolong": [_P] * 6 + [_F] + [_I] * 5 + [_P] * 3,
+    "pl_ritz_residual_blocks": [_I] * 2,
+    "pl_ritz_residual": [_P] * 5 + [_I] * 5 + [_P] * 4,
 }
 _LIB: Optional[ctypes.CDLL] = None
 _LOCK = threading.Lock()
@@ -737,3 +745,107 @@ def pencil_bounds_vector3(gp, w, N, inv_eps, betas, alpha: float,
 
 
 pencil_bounds_vector3.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K9: the vectorial sweep's bootstrap seed
+# ---------------------------------------------------------------------------
+
+def seed_prolong(Hc, colmask, cols, wts, R1, R2, scale: float):
+    """K9 (``csrc/seed_prolong.cu``): the two-grid bootstrap seed in the
+    filter's fused layout. With F = P Hc prolonged through the gather
+    tables, ``X = F / |F| m + R1 / |R1| (1 - m) + scale R2``, then
+    normalized; every norm per (design, column) over all 3 Dp rows.
+
+    Hc (B, 3, nc, k) f32 coarse Ritz vectors; colmask (B, k) f32; cols
+    (Dp, W) int32 and wts (Dp, W) f32 the prolongation's padded rows; R1,
+    R2 (Dp, B, 3, k) f32 standard-normal blocks. Returns X (Dp, B, 3, k).
+    Two launches (the column sums, then the blend) count as one. CUDA
+    tensors only: its twin is ``kernels.seed_prolong_plain``, and
+    ``solvers/vectorial._seed_from_coarse`` takes it on the CPU.
+    """
+    dev = Hc.device
+    if dev.type != "cuda":
+        raise ValueError(f"seed_prolong takes CUDA tensors, got {dev}")
+    B, C, nc, k = Hc.shape
+    Dp, W = cols.shape
+    f32 = torch.float32
+    if C != 3:
+        raise ValueError(f"Hc holds {C} components, expected 3")
+    if not 1 <= k <= 128:
+        raise ValueError(f"seed_prolong takes 1 to 128 columns, got {k}")
+    if not 1 <= W <= 8:
+        raise ValueError(f"seed_prolong takes 1 to 8 entries a row, got {W}")
+    _require(Hc, "Hc", f32, dev)
+    _require(colmask, "colmask", f32, dev, (B, k))
+    _require(cols, "cols", torch.int32, dev, (Dp, W))
+    _require(wts, "wts", f32, dev, (Dp, W))
+    _require(R1, "R1", f32, dev, (Dp, B, 3, k))
+    _require(R2, "R2", f32, dev, (Dp, B, 3, k))
+    L = lib()
+    partial = torch.empty((B, L.pl_seed_prolong_blocks(Dp, B, k), 6, k),
+                          dtype=torch.float64, device=dev)
+    X = torch.empty((Dp, B, 3, k), dtype=f32, device=dev)
+    rc = L.pl_seed_prolong(
+        Hc.data_ptr(), colmask.data_ptr(), cols.data_ptr(), wts.data_ptr(),
+        R1.data_ptr(), R2.data_ptr(), float(scale), Dp, B, nc, k, W,
+        partial.data_ptr(), X.data_ptr(), _stream(dev))
+    _check(rc, "seed_prolong")
+    _count(seed_prolong)
+    return X
+
+
+seed_prolong.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K10: the Rayleigh-Ritz residual norms and the pass gate
+# ---------------------------------------------------------------------------
+
+def ritz_residual(AQ, BQ, Ys, theta, cuts, n_wanted: int = 0):
+    """K10 (``csrc/ritz_residual.cu``): the Rayleigh-Ritz residuals
+    ``res[b, l] = ||(AQ_b - theta_bl BQ_b) Ys_b[:, l]|| /
+    (||AQ_b Ys_b[:, l]|| + 1e-30)`` over all rows of design b, without
+    forming AQ Ys, BQ Ys or the residual block, and the pass gate: the
+    largest res among the wanted columns (theta_bl < cuts_b, and l <
+    n_wanted when n_wanted > 0), or the smallest res if none is wanted.
+
+    AQ, BQ (D, B, C, k) f32 in the fused layout (C = 1 for the stacked
+    solver's (C D, k) block viewed as (C D, 1, 1, k)); Ys (B, k, k);
+    theta (B, k); cuts (B,). Returns res (B, k) and the gate, a 0-d
+    tensor. Two launches (the rows, then the partials and the gate)
+    count as one. CUDA tensors only: its twin is
+    ``kernels.ritz_residual_plain``, and ``kernels.ritz_residual_gate``
+    takes it on the CPU.
+    """
+    dev = AQ.device
+    if dev.type != "cuda":
+        raise ValueError(f"ritz_residual takes CUDA tensors, got {dev}")
+    if AQ.dim() != 4:
+        raise ValueError(f"AQ must be (D, B, C, k), got {tuple(AQ.shape)}")
+    D, B, C, k = AQ.shape
+    f32 = torch.float32
+    if not 1 <= k <= 96:
+        raise ValueError(f"ritz_residual takes 1 to 96 columns, got {k}")
+    if C not in (1, 3):
+        raise ValueError(f"ritz_residual takes C = 1 or 3, got {C}")
+    _require(AQ, "AQ", f32, dev)
+    _require(BQ, "BQ", f32, dev, (D, B, C, k))
+    _require(Ys, "Ys", f32, dev, (B, k, k))
+    _require(theta, "theta", f32, dev, (B, k))
+    _require(cuts, "cuts", f32, dev, (B,))
+    L = lib()
+    partial = torch.empty((B, L.pl_ritz_residual_blocks(D, B), 2, k),
+                          dtype=torch.float64, device=dev)
+    res = torch.empty((B, k), dtype=f32, device=dev)
+    gate = torch.empty((), dtype=f32, device=dev)
+    rc = L.pl_ritz_residual(
+        AQ.data_ptr(), BQ.data_ptr(), Ys.data_ptr(), theta.data_ptr(),
+        cuts.data_ptr(), D, B, C, k, int(n_wanted), partial.data_ptr(),
+        res.data_ptr(), gate.data_ptr(), _stream(dev))
+    _check(rc, "ritz_residual")
+    _count(ritz_residual)
+    return res, gate
+
+
+ritz_residual.launches = 0

@@ -13,16 +13,23 @@ Every filter step runs three hand-written kernels (``cuda_kernels`` K1
 and K3, ``triton_kernels`` K4): the packed A(beta_b) apply with its
 mask and park, element math and accumulate in one launch (K1), the
 fused mass apply, one launch per degree step of B^{-1} (K3), and the
-recurrence step (K4). The dense per-design Rayleigh-Ritz steps are
-``torch.linalg``. ``_apply_mass_fused_plain`` and
-``_apply_binv_fused_plain`` keep the unfused form of the mass path as
-the reference the kernel is held against.
+recurrence step (K4). The Rayleigh-Ritz keeps the fused layout: the
+per-design QR, the Grams, the small dense eigenproblem and the Ritz
+vectors are ``torch.linalg`` and batched GEMMs on the fused rows, and
+the residual norms with the pass gate are K10 (``ritz_residual``), so a
+pass reads one scalar on the host. The bootstrap seed is K9
+(``seed_prolong``), written straight into the fused layout.
+``_apply_mass_fused_plain`` and ``_apply_binv_fused_plain`` keep the
+unfused form of the mass path as the reference the kernel is held
+against; ``seed_prolong_plain`` and ``ritz_residual_plain`` are K9's and
+K10's twins.
 
 The stacked form (``_apply_stacked`` .. ``solve_lowest_kernel``) applies
 a C-component operator from its assembled (E, 6C, 6C) element blocks to
 the component-major block (C D, k): K5 (``apply_stacked``) for the
 whole apply with its mask and park in one launch, K3 once per component
 and degree step for B^{-1}, K4 for the recurrence on the block viewed as
+(C D, 1, 1, k), K10 for its residuals and gate on the block viewed as
 (C D, 1, 1, k). C = 1 is the scalar pencil. The spectrum bound both
 solvers start from is K8: ``pencil_bounds_elem`` on assembled blocks
 (the scalar pencil), ``pencil_bounds_sweep`` from the quadrature factors
@@ -32,6 +39,7 @@ from __future__ import annotations
 
 import functools
 import logging
+import threading
 import time
 from typing import NamedTuple
 
@@ -43,7 +51,7 @@ from .assembly import (ApplyPlan, MassPlan, quadrature_primitives,
 from .cuda_kernels import (BinvStep, accumulate, apply_stacked,
                            apply_vector3, mass_apply, mass_apply_plain,
                            pencil_bounds, pencil_bounds_plain,
-                           pencil_bounds_vector3)
+                           pencil_bounds_vector3, ritz_residual)
 from .quadrature import RULES, p2_shape
 from .triton_kernels import cheb_step
 
@@ -53,6 +61,15 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 _log = logging.getLogger("pl_fem_tpu_torch.kernels")
+
+# torch.linalg's cuSOLVER calls are not safe from two host threads at
+# once, and the dataset engine's bucket pipeline runs two sweeps: on an
+# H100 two threads' QRs of (B, 3D, k) blocks failed with
+# CUSOLVER_STATUS_INTERNAL_ERROR within seconds, and the first linalg
+# call of a process (which loads torch's CUDA linalg library) fails in
+# one of two threads that make it together. The Rayleigh-Ritz's QR and
+# small eigenproblems take this lock.
+_LINALG_LOCK = threading.Lock()
 
 
 class GatherScatter(NamedTuple):
@@ -126,6 +143,32 @@ def _stacked_from_fused(Xf):
     """(D, B, 3, k) fused-lane -> (3D, B, k) component-major."""
     D, B, C, k = Xf.shape
     return Xf.permute(2, 0, 1, 3).reshape(C * D, B, k)
+
+
+# ---------------------------------------------------------------------------
+# the bootstrap seed
+# ---------------------------------------------------------------------------
+
+def seed_prolong_plain(Hc, colmask, cols, wts, R1, R2, scale: float):
+    """Plain twin of K9, the body of pl_fem_tpu/solvers/vectorial.py
+    ``_seed_from_coarse`` in the fused layout: W gathers of the coarse
+    vectors Hc (B, 3, nc, k) through the prolongation's (Dp, W) tables,
+    then ``X = F / |F| m + R1 / |R1| (1 - m) + scale R2`` normalized,
+    every norm per (design, column) over the 3 Dp rows (d, c). R1, R2
+    and the result are (Dp, B, 3, k)."""
+    F = None
+    for j in range(cols.shape[1]):
+        g = Hc[:, :, cols[:, j].long(), :] * wts[None, None, :, j, None]
+        F = g if F is None else F + g                 # (B, 3, Dp, k)
+    F = F.permute(2, 0, 1, 3)                         # (Dp, B, 3, k)
+
+    def norm(V):
+        return torch.linalg.vector_norm(V, dim=(0, 2), keepdim=True) + 1e-30
+
+    m = colmask[None, :, None, :]
+    X = F / norm(F) * m + R1 / norm(R1) * (1.0 - m)
+    X = X + scale * R2
+    return (X / norm(X)).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -304,55 +347,130 @@ def cheb_sweep_filter(qs, gs, mask, dinv_sqrt, lo, hi, parks, betas, alpha,
     return _sweep_iterate(apply_w, c, h, T0, T1, degree - 1, renorm_every)
 
 
-def cheb_sweep_rr_impl(qs, gs, mask, parks, betas, alpha, Xff):
-    """Rayleigh-Ritz tail on a filtered fused-lane subspace.
+def _fused_gram(U, V):
+    """Per design b, the sum over the rows (d, c) of U_b^T V_b for fused
+    (D, B, C, k) blocks: one batched GEMM over the (b, c) slices (each a
+    (D, k) matrix of row stride B C k), summed over c. Returns (B, k,
+    k)."""
+    D, B, C, k = U.shape
+    Uv = U.view(D, B * C, k)
+    Vv = V.view(D, B * C, k)
+    return torch.bmm(Uv.permute(1, 2, 0), Vv.transpose(0, 1)).view(
+        B, C, k, k).sum(1)
 
-    Per-design QR, one packed A and one mass apply, the k x k Gram
-    matrices (symmetrized, with a 1e-6 trace shift on G), Cholesky,
-    the generalized eigh, Ritz vectors and relative residuals.
-    Returns theta (B, k), Xr (3D, B, k) and res (B, k).
-    """
-    D, B, _, k = Xff.shape
-    Xf = _stacked_from_fused(Xff)                      # (3D, B, k)
-    Q = torch.linalg.qr(Xf.permute(1, 0, 2))[0]        # (B, 3D, k)
-    Qp = Q.permute(1, 0, 2).contiguous()               # (3D, B, k)
-    Qf = _fused_from_stacked(Qp)
-    AQ = _stacked_from_fused(_apply_vector3_fused(qs, gs, mask, parks, betas,
-                                                  alpha, Qf))
-    BQ = _stacked_from_fused(_apply_mass_fused(
-        qs, gs, mask, Qf.reshape(D, 3 * B * k)).reshape(D, B, 3, k))
-    H = torch.einsum("dbk,dbl->bkl", Qp, AQ)
-    G = torch.einsum("dbk,dbl->bkl", Qp, BQ)
+
+def _fused_ritz_vectors(Qf, Ys):
+    """Xr_b = Q_b Ys_b on the fused rows: one batched GEMM over the (b, c)
+    slices, written straight into a fused (D, B, C, k) block."""
+    D, B, C, k = Qf.shape
+    Xr = torch.empty_like(Qf)
+    torch.bmm(Qf.view(D, B * C, k).transpose(0, 1),
+              Ys.repeat_interleave(C, dim=0),
+              out=Xr.view(D, B * C, k).transpose(0, 1))
+    return Xr
+
+
+def _ritz_pairs(H, G):
+    """The small generalized eigenproblems of the Rayleigh-Ritz, per
+    design: H and G (B, k, k) symmetrized, G shifted by 1e-6 of its mean
+    diagonal, the Cholesky congruence, eigh (under ``_LINALG_LOCK``).
+    Returns theta (B, k) ascending and Ys (B, k, k), G-orthonormal."""
+    k = H.shape[-1]
     H = 0.5 * (H + H.transpose(1, 2))
     G = 0.5 * (G + G.transpose(1, 2))
     eye = torch.eye(k, dtype=G.dtype, device=G.device)
     G = G + (1e-6 * torch.diagonal(G, dim1=1, dim2=2).sum(-1)[:, None, None]
              / k) * eye[None]
-    Lc = torch.linalg.cholesky(G)
-    Hw = torch.linalg.solve_triangular(Lc, H, upper=False)
-    Hw = torch.linalg.solve_triangular(Lc, Hw.transpose(1, 2), upper=False)
-    Hw = 0.5 * (Hw + Hw.transpose(1, 2))
-    theta, Wv = torch.linalg.eigh(Hw)
-    Ys = torch.linalg.solve_triangular(Lc.transpose(1, 2), Wv, upper=True)
-    Xr = torch.einsum("dbk,bkl->dbl", Qp, Ys)
-    AXr = torch.einsum("dbk,bkl->dbl", AQ, Ys)
-    BXr = torch.einsum("dbk,bkl->dbl", BQ, Ys)
-    Rs = AXr - BXr * theta[None]
-    res = (torch.linalg.vector_norm(Rs, dim=0)
-           / (torch.linalg.vector_norm(AXr, dim=0) + 1e-30))
-    return theta, Xr, res
+    with _LINALG_LOCK:
+        Lc = torch.linalg.cholesky(G)
+        Hw = torch.linalg.solve_triangular(Lc, H, upper=False)
+        Hw = torch.linalg.solve_triangular(Lc, Hw.transpose(1, 2),
+                                           upper=False)
+        Hw = 0.5 * (Hw + Hw.transpose(1, 2))
+        theta, Wv = torch.linalg.eigh(Hw)
+        return theta, torch.linalg.solve_triangular(Lc.transpose(1, 2), Wv,
+                                                    upper=True)
+
+
+def _fused_qr(Xff):
+    """Per-design Q of the fused block Xff (D, B, C, k), back in the fused
+    layout: QR (under ``_LINALG_LOCK``) on the rows (d, c) of each design,
+    one gather in and one out (QR wants each design's rows together; any
+    fixed row order gives the same Rayleigh-Ritz)."""
+    D, B, C, k = Xff.shape
+    with _LINALG_LOCK:
+        Q = torch.linalg.qr(Xff.permute(1, 0, 2, 3).reshape(B, C * D, k))[0]
+    return Q.unflatten(1, (D, C)).permute(1, 0, 2, 3).contiguous()
+
+
+def ritz_residual_plain(AQ, BQ, Ys, theta, cuts, n_wanted: int = 0):
+    """Plain twin of K10: the tail of pl_fem_tpu/ops/kernels.py
+    ``cheb_sweep_rr_impl`` on fused (D, B, C, k) blocks (the Ritz blocks
+    AQ Ys and BQ Ys, the residual block and the column norms over all
+    rows of a design) and the pass gate of ``_sweep_gate_maxres``.
+    Returns res (B, k) and the gate, a 0-d tensor."""
+    AXr = torch.einsum("dbck,bkl->dbcl", AQ, Ys)
+    BXr = torch.einsum("dbck,bkl->dbcl", BQ, Ys)
+    R = AXr - BXr * theta[None, :, None, :]
+    res = (torch.linalg.vector_norm(R, dim=(0, 2))
+           / (torch.linalg.vector_norm(AXr, dim=(0, 2)) + 1e-30))
+    return res, _sweep_gate_maxres(theta, res, cuts, n_wanted)
 
 
 def _sweep_gate_maxres(theta, res, cuts, n_wanted: int = 0):
     """Worst residual among the wanted sub-cut modes, or the minimum
-    residual if nothing is wanted yet (one scalar for the pass gate)."""
+    residual if nothing is wanted yet: the pass gate as a 0-d tensor on
+    the device of ``res`` (pl_fem_tpu/ops/kernels.py
+    ``_sweep_gate_maxres``)."""
     wanted = theta < cuts[:, None]
     if n_wanted > 0:
         cols = torch.arange(theta.shape[1], device=theta.device)
         wanted = wanted & (cols[None, :] < n_wanted)
-    if bool(wanted.any()):
-        return float(res[wanted].max())
-    return float(res.min())
+    worst = torch.where(wanted, res, -torch.inf).max()
+    return torch.where(wanted.any(), worst, res.min())
+
+
+def ritz_residual_gate(AQ, BQ, Ys, theta, cuts, n_wanted: int = 0):
+    """The Rayleigh-Ritz residuals res (B, k) of the fused (D, B, C, k)
+    blocks AQ and BQ at the Ritz pairs (theta (B, k), Ys (B, k, k)), and
+    the pass gate (0-d) from the per-design ``cuts`` (B,): K10
+    (``ritz_residual``, one launch) on the card, its twin on the CPU."""
+    fn = ritz_residual_plain if AQ.device.type == "cpu" else ritz_residual
+    return fn(AQ, BQ, Ys.contiguous(), theta.contiguous(), cuts,
+              n_wanted)
+
+
+def _sweep_ritz(qs, gs, mask, parks, betas, alpha, Xff):
+    """The Rayleigh-Ritz projection of a filtered fused-lane subspace Xff
+    (D, B, 3, k): per-design QR (``_fused_qr``), one packed A apply (K1)
+    and one mass apply (K3) on Q, the k x k Grams on the fused rows and
+    the Ritz pairs. Returns (Qf, AQ, BQ, theta, Ys), the first three
+    fused (D, B, 3, k)."""
+    D, B, C, k = Xff.shape
+    Qf = _fused_qr(Xff)
+    AQ = _apply_vector3_fused(qs, gs, mask, parks, betas, alpha, Qf)
+    BQ = _apply_mass_fused(qs, gs, mask,
+                           Qf.view(D, B * C * k)).view(D, B, C, k)
+    theta, Ys = _ritz_pairs(_fused_gram(Qf, AQ), _fused_gram(Qf, BQ))
+    return Qf, AQ, BQ, theta, Ys
+
+
+def cheb_sweep_rr_impl(qs, gs, mask, parks, betas, alpha, Xff, cuts,
+                       n_wanted: int = 0):
+    """Rayleigh-Ritz tail on a filtered fused-lane subspace Xff
+    (D, B, 3, k), in the fused layout throughout.
+
+    Per-design QR, one packed A and one mass apply, the k x k Gram
+    matrices (symmetrized, with a 1e-6 trace shift on G), Cholesky, the
+    generalized eigh, Ritz vectors, and K10 for the relative residuals
+    and the pass gate (``cuts`` (B,) f32 on the device, ``n_wanted`` as
+    in ``solve_lowest_sweep``). Returns theta (B, k), Xr (D, B, 3, k),
+    res (B, k) and the gate (0-d).
+    """
+    Qf, AQ, BQ, theta, Ys = _sweep_ritz(qs, gs, mask, parks, betas, alpha,
+                                        Xff)
+    res, gate = ritz_residual_gate(AQ, BQ, Ys, theta, cuts, n_wanted)
+    return theta, _fused_ritz_vectors(Qf, Ys), res, gate
 
 
 def solve_lowest_sweep(qs: QFactorSweep, gs, mask, diag_B, X0, cuts, betas,
@@ -361,11 +479,14 @@ def solve_lowest_sweep(qs: QFactorSweep, gs, mask, diag_B, X0, cuts, betas,
                        binv_degree: int = 4, n_wanted: int = 0):
     """Adaptive pass driver for the packed same-grid sweep.
 
-    X0 (3D, B, k), a tensor or a numpy array, is moved to the device of
-    ``qs``. cuts, betas, bounds and parks are (B,) per-design values.
-    Each pass filters with ``degree`` steps and runs the Rayleigh-Ritz;
-    after ``passes`` passes the driver stops once the worst wanted
-    residual is below max(tol, 5e-6) or improves by less than 30%.
+    X0, a tensor or a numpy array, is moved to the device of ``qs``: the
+    fused (D, B, 3, k) block the filter takes (the bootstrap seed), or
+    the component-major (3D, B, k), converted once. cuts, betas, bounds
+    and parks are (B,) per-design values. Each pass filters with
+    ``degree`` steps and runs the Rayleigh-Ritz, the subspace staying
+    fused from pass to pass; after ``passes`` passes the loop reads the
+    pass gate (one scalar) and stops once the worst wanted residual is
+    below max(tol, 5e-6) or improves by less than 30%.
     Returns theta (B, k), Xr (3D, B, k) and res (B, k).
     """
     dev = qs.w.device
@@ -385,25 +506,26 @@ def solve_lowest_sweep(qs: QFactorSweep, gs, mask, diag_B, X0, cuts, betas,
         bounds = bounds * np.float32(_LUMP_BOUND)
     bounds = torch.maximum(bounds, parks * np.float32(1.05))
     X = torch.as_tensor(X0, device=dev).to(f32)
-    theta = Xr = res = None
+    Xf = X if X.dim() == 4 else _fused_from_stacked(X)
+    theta = res = None
     prev = np.inf
     for ip in range(max_passes):
         t0 = time.perf_counter()
-        Xf = cheb_sweep_filter(qs, gs, mask, dinv_sqrt, lo, hi, parks, betas,
-                               float(alpha), _fused_from_stacked(X), cuts,
-                               bounds, degree=degree, binv_degree=binv_degree)
-        theta, Xr, res = cheb_sweep_rr_impl(qs, gs, mask, parks, betas,
-                                            float(alpha), Xf)
-        X = Xr
+        Xff = cheb_sweep_filter(qs, gs, mask, dinv_sqrt, lo, hi, parks,
+                                betas, float(alpha), Xf, cuts, bounds,
+                                degree=degree, binv_degree=binv_degree)
+        theta, Xf, res, gate = cheb_sweep_rr_impl(
+            qs, gs, mask, parks, betas, float(alpha), Xff, cuts,
+            n_wanted=n_wanted)
         if ip + 1 >= passes:
-            maxres = _sweep_gate_maxres(theta, res, cuts, n_wanted=n_wanted)
+            maxres = float(gate)
             _log.debug("sweep pass %d (deg %d, binv %d): %.2fs maxres=%.2e",
                        ip, degree, binv_degree, time.perf_counter() - t0,
                        maxres)
             if maxres < eff_tol or maxres > 0.7 * prev:
                 break
             prev = maxres
-    return theta, Xr, res
+    return theta, _stacked_from_fused(Xf), res
 
 
 # ---------------------------------------------------------------------------
@@ -531,7 +653,8 @@ def _apply_binv(w, gs: GatherScatter, mask, dinv_sqrt, lo, hi, X, C: int,
 
 def cheb_rr_pass_impl(Abig, w, gs, mask, dinv_sqrt, lo, hi, park, X, cut,
                       bound, C: int = 1, degree: int = 300,
-                      binv_degree: int = 8, renorm_every: int = 8):
+                      binv_degree: int = 8, renorm_every: int = 8,
+                      n_wanted: int = 0):
     """Low-end Chebyshev filter + QR-stabilized Rayleigh-Ritz, one pass.
 
     Pure float32 on the device; final eigenvalue accuracy comes from the
@@ -546,7 +669,9 @@ def cheb_rr_pass_impl(Abig, w, gs, mask, dinv_sqrt, lo, hi, park, X, cut,
 
     Returns:
         theta (k,) ascending, X (C D, k) B-orthonormal Ritz vectors
-        (f32), resnorm (k,).
+        (f32), resnorm (k,), and the pass gate (0-d): the worst resnorm
+        of the columns below ``cut`` (the first ``n_wanted`` of them when
+        n_wanted > 0), or the smallest resnorm if none is.
     """
     f32 = torch.float32
     dev = X.device
@@ -570,28 +695,17 @@ def cheb_rr_pass_impl(Abig, w, gs, mask, dinv_sqrt, lo, hi, park, X, cut,
                         start=1).view(CD, k)
 
     # QR basis (stable for near-collinear filtered columns), then
-    # Rayleigh-Ritz via a Cholesky congruence of the small (k, k) Gram.
-    Q = torch.linalg.qr(Xf)[0].contiguous()
+    # Rayleigh-Ritz via a Cholesky congruence of the small (k, k) Gram;
+    # K10 for the residuals and the gate, on the block as one design
+    with _LINALG_LOCK:
+        Q = torch.linalg.qr(Xf)[0].contiguous()
     AQ = _apply_stacked(Abig, gs, mask, pk, Q, C)
     BQ = _apply_mass(w, gs, mask, Q, C)
-    H = Q.T @ AQ
-    G = Q.T @ BQ
-    H = 0.5 * (H + H.T)
-    G = 0.5 * (G + G.T)
-    G = G + (1e-6 * torch.trace(G) / k) * torch.eye(k, dtype=f32, device=dev)
-    Lc = torch.linalg.cholesky(G)
-    Hw = torch.linalg.solve_triangular(Lc, H, upper=False)
-    Hw = torch.linalg.solve_triangular(Lc, Hw.T, upper=False)
-    Hw = 0.5 * (Hw + Hw.T)
-    theta, Wv = torch.linalg.eigh(Hw)
-    Y = torch.linalg.solve_triangular(Lc.T, Wv, upper=True)
-    Xr = Q @ Y
-    AXr = AQ @ Y
-    BXr = BQ @ Y
-    R = AXr - BXr * theta[None, :]
-    res = (torch.linalg.vector_norm(R, dim=0)
-           / (torch.linalg.vector_norm(AXr, dim=0) + 1e-30))
-    return theta, Xr, res
+    theta, Y = _ritz_pairs((Q.T @ AQ)[None], (Q.T @ BQ)[None])
+    res, gate = ritz_residual_gate(
+        AQ.view(CD, 1, 1, k), BQ.view(CD, 1, 1, k), Y, theta,
+        torch.as_tensor(cut, dtype=f32, device=dev).reshape(1), n_wanted)
+    return theta[0], Q @ Y[0], res[0], gate
 
 
 def solve_lowest_kernel(Abig, Bblk, gs, mask, diag_B, X0, cut, elem_valid,
@@ -606,7 +720,7 @@ def solve_lowest_kernel(Abig, Bblk, gs, mask, diag_B, X0, cut, elem_valid,
     pencil (Bblk enters only the spectrum bound; the mass applies build
     the same blocks from ``w`` (E, Q) inside K3). X0 (C D, k), a tensor
     or a numpy array, is moved to the device of ``Abig``. After
-    ``passes`` passes the loop reads theta and res on the host every
+    ``passes`` passes the loop reads the pass gate (one scalar) every
     pass and stops once the worst wanted residual is below
     max(tol, 5e-6) or improves by less than 30%.
     Returns theta (k,), Xr (C D, k) and res (k,).
@@ -631,18 +745,12 @@ def solve_lowest_kernel(Abig, Bblk, gs, mask, diag_B, X0, cut, elem_valid,
     prev = np.inf
     for ip in range(max_passes):
         t0 = time.perf_counter()
-        theta, Xr, res = cheb_rr_pass_impl(
+        theta, Xr, res, gate = cheb_rr_pass_impl(
             Abig, w, gs, mask, dinv_sqrt, lo, hi, park, X, cut_t, bound,
-            C=C, degree=degree, binv_degree=binv_degree)
+            C=C, degree=degree, binv_degree=binv_degree, n_wanted=n_wanted)
         X = Xr
         if ip + 1 >= passes:
-            th = theta.cpu().numpy()
-            rs = res.cpu().numpy()
-            wanted = th < cut
-            if n_wanted > 0:
-                # only the n_wanted lowest matter (theta is ascending)
-                wanted = wanted & (np.arange(len(th)) < n_wanted)
-            maxres = rs[wanted].max() if wanted.any() else rs.min()
+            maxres = float(gate)
             _log.debug("stacked pass %d (deg %d, binv %d): %.2fs "
                        "maxres=%.2e", ip, degree, binv_degree,
                        time.perf_counter() - t0, maxres)

@@ -56,7 +56,9 @@ from ..ops.host_assembly import (
     scalar_pattern,
     vector3_prims_np,
 )
-from ..ops.kernels import pencil_bounds_sweep, solve_lowest_sweep
+from ..ops.cuda_kernels import seed_prolong
+from ..ops.kernels import (_fused_from_stacked, pencil_bounds_sweep,
+                           seed_prolong_plain, solve_lowest_sweep)
 from .postproc import polarization_from_powers, polarization_label
 
 logger = logging.getLogger("pl_fem_tpu_torch.solvers.vectorial")
@@ -84,34 +86,44 @@ def lp01_neff_estimate(k0: float, r_mean: float, n_core: float,
 _PROLONG_CACHE: dict = {}
 
 
-def _prolongation_cached(grid_c: FEMGrid, dg: DeviceGrid):
-    """Coarse->fine P2 prolongation, cached per (coarse, fine) pair.
+def _prolongation_tables(Pc, Dp: int):
+    """The padded (Dp, W) gather tables of a CSR prolongation ``Pc``: row
+    r holds its entries' columns (int32) and weights (f32) in stored
+    order, zero-padded to the widest row; rows past ``Pc``'s are zero."""
+    counts = np.diff(Pc.indptr)
+    W = int(counts.max()) if Pc.nnz else 1
+    rows = np.repeat(np.arange(Pc.shape[0]), counts)
+    pos = np.arange(Pc.nnz) - np.repeat(Pc.indptr[:-1], counts)
+    cols = np.zeros((Dp, W), np.int32)
+    wts = np.zeros((Dp, W), np.float32)
+    cols[rows, pos] = Pc.indices[:Pc.nnz]
+    wts[rows, pos] = Pc.data[:Pc.nnz]
+    return cols, wts
 
-    Returns ``(P_csr, (cols, wts))``: the host CSR plus padded numpy
-    gather tables (Dp, W) — every P row is the 6 P2 shape values of the
-    containing coarse element, so the prolongation runs on the device as
-    W gather-FMAs (see ``_seed_from_coarse``)."""
+
+def _prolongation_cached(grid_c: FEMGrid, dg: DeviceGrid, device):
+    """Coarse->fine P2 prolongation, cached per (coarse grid, fine grid,
+    device).
+
+    Returns ``(P_csr, (cols, wts))``: the host CSR plus the padded
+    (Dp, W) gather tables on ``device`` (int32 columns, f32 weights) —
+    every P row is the 6 P2 shape values of the containing coarse
+    element, so the prolongation runs on the device as W gather-FMAs
+    (see ``_seed_from_coarse``)."""
     import zlib
 
     from ..ops.femgrid import p2_prolongation
 
+    dev = torch.device(device)
     key = (zlib.crc32(grid_c.elem_dofs.tobytes()), grid_c.n_dofs,
            zlib.crc32(np.ascontiguousarray(
-               dg.dof_coords[:dg.n_dofs]).tobytes()), dg.n_dofs)
+               dg.dof_coords[:dg.n_dofs]).tobytes()), dg.n_dofs, str(dev))
     hit = _PROLONG_CACHE.get(key)
     if hit is None:
         P = p2_prolongation(grid_c, dg.dof_coords[:dg.n_dofs])
-        Pc = P.tocsr()
-        n = Pc.shape[0]
-        Dp = dg.n_dofs_padded
-        W = int(np.diff(Pc.indptr).max()) if Pc.nnz else 1
-        cols = np.zeros((Dp, W), np.int32)
-        wts = np.zeros((Dp, W), np.float32)
-        for r in range(n):
-            s, e = Pc.indptr[r], Pc.indptr[r + 1]
-            cols[r, :e - s] = Pc.indices[s:e]
-            wts[r, :e - s] = Pc.data[s:e]
-        hit = (P, (cols, wts))
+        cols, wts = _prolongation_tables(P.tocsr(), dg.n_dofs_padded)
+        hit = (P, (torch.as_tensor(cols, device=dev),
+                   torch.as_tensor(wts, device=dev)))
         if len(_PROLONG_CACHE) > 8:
             _PROLONG_CACHE.clear()
         _PROLONG_CACHE[key] = hit
@@ -121,46 +133,39 @@ def _prolongation_cached(grid_c: FEMGrid, dg: DeviceGrid):
 def _seed_from_coarse(Hc, colmask, Pcols, Pwts, device,
                       generator: Optional[torch.Generator] = None,
                       noise=None):
-    """Bootstrap seed on the device: prolong + blend + normalize.
+    """Bootstrap seed on the device: prolong + blend + normalize (K9
+    ``seed_prolong``, one launch, on the card; its twin on the CPU).
 
-    Hc (B, 3, nc, k) coarse Ritz vectors (zero-padded columns), colmask
-    (B, k) 1.0 on seeded columns, Pcols/Pwts (Dp, W) gather tables, all
-    numpy arrays. Seeded columns normalize then blend 5% random (the
-    prolonged span is error-correlated and a Chebyshev filter can only
-    shrink a span — see _bootstrap_sweep); unseeded columns are unit
-    random. The two standard-normal (3Dp, B, k) blocks come from
-    ``noise`` = (R1, R2) when given (the tests feed both packages the
-    same numbers), else from ``generator``. Returns X (3Dp, B, k) f32.
+    Hc (B, 3, nc, k) coarse Ritz vectors (zero-padded columns) and
+    colmask (B, k) 1.0 on seeded columns, numpy arrays; Pcols/Pwts the
+    (Dp, W) gather tables (``_prolongation_cached``'s device tables, or
+    arrays). Seeded columns normalize then blend 5% random (the prolonged
+    span is error-correlated and a Chebyshev filter can only shrink a
+    span — see _bootstrap_sweep); unseeded columns are unit random. The
+    two standard-normal blocks come from ``noise`` = (R1, R2), each
+    (3Dp, B, k) component-major, when given (the tests feed both
+    packages the same numbers), else from ``generator``, drawn in the
+    fused layout; R2 enters at 0.05 / sqrt(3 Dp). Returns X (Dp, B, 3, k)
+    f32, the fused block the filter takes.
     """
+    dev = torch.device(device)
     f32 = torch.float32
-
-    def t(a, dt=f32):
-        return torch.tensor(np.asarray(a), dtype=dt, device=device)
-
-    Hc = t(Hc)
-    colmask = t(colmask)
-    Pcols = t(Pcols, torch.long)
-    Pwts = t(Pwts)
-    B, C, nc, k = Hc.shape
-    Dp, W = Pcols.shape
-    F = None
-    for j in range(W):
-        g = Hc[:, :, Pcols[:, j], :] * Pwts[None, None, :, j, None]
-        F = g if F is None else F + g                 # (B, 3, Dp, k)
-    F = F.permute(1, 2, 0, 3).reshape(C * Dp, B, k)
+    Hc = torch.tensor(np.asarray(Hc, dtype=np.float32), device=dev)
+    colmask = torch.tensor(np.asarray(colmask, dtype=np.float32),
+                           device=dev)
+    cols = torch.as_tensor(Pcols, dtype=torch.int32, device=dev)
+    wts = torch.as_tensor(Pwts, dtype=f32, device=dev)
+    B, _, _, k = Hc.shape
+    shape = (cols.shape[0], B, 3, k)
     if noise is not None:
-        R1, R2 = (t(r) for r in noise)
+        R1, R2 = (_fused_from_stacked(torch.tensor(
+            np.asarray(r, dtype=np.float32), device=dev)) for r in noise)
     else:
-        R1 = torch.randn(F.shape, generator=generator, device=device,
-                         dtype=f32)
-        R2 = torch.randn(F.shape, generator=generator, device=device,
-                         dtype=f32)
-    nF = torch.linalg.vector_norm(F, dim=0, keepdim=True) + 1e-30
-    nR = torch.linalg.vector_norm(R1, dim=0, keepdim=True) + 1e-30
-    m = colmask[None]                                 # (1, B, k)
-    X = F / nF * m + R1 / nR * (1.0 - m)
-    X = X + np.float32(0.05 / np.sqrt(np.float32(F.shape[0]))) * R2
-    return X / (torch.linalg.vector_norm(X, dim=0, keepdim=True) + 1e-30)
+        R1 = torch.randn(shape, generator=generator, device=dev, dtype=f32)
+        R2 = torch.randn(shape, generator=generator, device=dev, dtype=f32)
+    scale = float(np.float32(0.05 / np.sqrt(np.float32(3 * shape[0]))))
+    seed = seed_prolong_plain if dev.type == "cpu" else seed_prolong
+    return seed(Hc, colmask, cols, wts, R1, R2, scale)
 
 
 def _as_device_grid(grid, config: SimulationConfig) -> DeviceGrid:
@@ -366,8 +371,9 @@ class TrueVectorialMaxwellSolver:
         Solves the same sweep on a ~6x-coarser mesh and P2-interpolates
         the polished coarse modes onto the fine DOFs. ``coarse_X0`` is
         the coarse sweep's ``X0`` (see ``solve_sweep``), ``noise`` the
-        seed's blend. Returns (X0 (3Dp, B, k) f32 tensor, betas (B,),
-        used mask) or None if the bootstrap is not applicable.
+        seed's blend. Returns (X0 (Dp, B, 3, k) f32 tensor in the
+        filter's fused layout, betas (B,), used mask) or None if the
+        bootstrap is not applicable.
         """
         import dataclasses as dc
 
@@ -434,7 +440,7 @@ class TrueVectorialMaxwellSolver:
         if not any(results_c):
             return None
 
-        _, (Pcols, Pwts) = _prolongation_cached(grid_c, dg)
+        _, (Pcols, Pwts) = _prolongation_cached(grid_c, dg, dev)
         nc = grid_c.n_dofs
         # Seed only HALF the columns from the coarse modes: the prolonged
         # columns share the prolongation's error directions, so the random

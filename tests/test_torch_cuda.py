@@ -11,6 +11,7 @@ the same sums); K6 decides eps_re exactly as its twin and holds eps_im
 to 1e-6 of max(1, max|eps_im|) (the kernel's exp / log against powf).
 """
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -914,3 +915,303 @@ def test_vector_sweep_on_card_matches_cpu(setup, dev):
         ne_c = np.array([m["n_eff"] for m in mc[:n_modes]])
         ne_p = np.array([m["n_eff"] for m in mp[:n_modes]])
         assert np.abs(ne_c - ne_p).max() / ne_p.max() <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the vectorial sweep's bootstrap seed (K9) and the Rayleigh-Ritz residuals
+# with the pass gate (K10)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def seed_setup(dev):
+    """The prolongation tables of a coarse / fine pair of the small mesh's
+    geometry on the card, and coarse vectors for B = 3 designs at k = 22:
+    design 2 unseeded (colmask 0)."""
+    from pl_fem_tpu_torch.solvers import vectorial as tv
+
+    geom = MCFGeometry(3, 8.0, 1.5, 1.535, 1.0, wavelength_um=1.55)
+    fine = export_device_grid(MeshGenerator.generate(geom, 0.5, SimulationConfig(
+        mesh_min_points=400, mesh_target_points=1600,
+        mesh=MeshConfig(bucket_rounding=256))), 256)
+    coarse = MeshGenerator.generate(geom, 0.25, SimulationConfig(
+        mesh_min_points=100, mesh_target_points=400))
+    _, (cols, wts) = tv._prolongation_cached(coarse, fine, dev)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    k, Bs = 22, 3
+    Dp = fine.n_dofs_padded
+    Hc = torch.randn((Bs, 3, coarse.n_dofs, k), generator=gen, device=dev)
+    colmask = torch.zeros((Bs, k), device=dev)
+    colmask[0, :11] = 1.0
+    colmask[1, :15] = 1.0
+    Hc[:, :, :, 15:] = 0.0
+    Hc[2] = 0.0
+    R1, R2 = (torch.randn((Dp, Bs, 3, k), generator=gen, device=dev)
+              for _ in range(2))
+    scale = float(np.float32(0.05 / np.sqrt(np.float32(3 * Dp))))
+    return dict(args=(Hc, colmask, cols, wts, R1, R2, scale), Dp=Dp, k=k,
+                B=Bs)
+
+
+def test_seed_prolong(seed_setup, dev):
+    """K9 against its twin on real prolongation tables: within 1e-5 of
+    max|X|, one launch, the same bits from a second launch, unit columns
+    (the unseeded design's too, which is R1 / |R1| blended)."""
+    args = seed_setup["args"]
+    n0 = ck.seed_prolong.launches
+    X = ck.seed_prolong(*args)
+    assert ck.seed_prolong.launches == n0 + 1
+    assert X.shape == (seed_setup["Dp"], seed_setup["B"], 3, seed_setup["k"])
+    assert _rel(tk.seed_prolong_plain(*args), X) <= 1e-5
+    assert torch.equal(X, ck.seed_prolong(*args))
+    norms = torch.linalg.vector_norm(X, dim=(0, 2))
+    assert torch.allclose(norms, torch.ones_like(norms), atol=1e-5)
+    from pl_fem_tpu_torch.solvers import vectorial as tv
+
+    # the solver's helper: numpy coarse vectors, noise given (3Dp, B, k)
+    Hc, colmask, cols, wts, R1, R2, _ = args
+    Y = tv._seed_from_coarse(
+        Hc.cpu().numpy(), colmask.cpu().numpy(), cols, wts, dev,
+        noise=[tk._stacked_from_fused(r).cpu().numpy() for r in (R1, R2)])
+    assert torch.equal(Y, X)
+
+
+def _ritz_inputs(dev, D, B_, C, k, seed):
+    """Random fused AQ, BQ (D, B, C, k) with BQ ~ AQ / 2, G-orthonormal-ish
+    Ys, theta from 2 up (residuals 1e-3 .. 0.5), cuts in between."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    AQ = torch.randn((D, B_, C, k), generator=gen, device=dev)
+    BQ = (0.5 * AQ + 1e-3 * torch.randn((D, B_, C, k), generator=gen,
+                                        device=dev)).contiguous()
+    Ys = torch.randn((B_, k, k), generator=gen, device=dev) / k ** 0.5
+    theta = (2.0 + torch.linspace(0.0, 1.0, k, device=dev)[None]
+             .expand(B_, k)).contiguous()
+    cuts = torch.linspace(2.3, 2.7, B_, device=dev)
+    return AQ, BQ, Ys, theta, cuts
+
+
+def _check_ritz(AQ, BQ, Ys, theta, cuts, n_wanted=0):
+    """K10 against its twin: res within 1e-6 + 1e-3 res_twin, the gate
+    within the same of the twin's and equal to the max (or min) of K10's
+    own res over the twin's wanted set, one launch, the same bits from a
+    second launch."""
+    n0 = ck.ritz_residual.launches
+    res, gate = ck.ritz_residual(AQ, BQ, Ys, theta, cuts, n_wanted)
+    assert ck.ritz_residual.launches == n0 + 1
+    ref, rgate = tk.ritz_residual_plain(AQ, BQ, Ys, theta, cuts, n_wanted)
+    assert bool(((res - ref).abs() <= 1e-6 + 1e-3 * ref).all())
+    assert abs(float(gate) - float(rgate)) <= 1e-6 + 1e-3 * float(rgate)
+    assert float(gate) == float(tk._sweep_gate_maxres(theta, res, cuts,
+                                                      n_wanted))
+    again = ck.ritz_residual(AQ, BQ, Ys, theta, cuts, n_wanted)
+    assert torch.equal(res, again[0]) and torch.equal(gate, again[1])
+
+
+@pytest.mark.parametrize("D,B_,C,k", [(700, 3, 3, 7), (1000, 8, 3, 22),
+                                      (613, 5, 3, 42), (2000, 1, 1, 22),
+                                      (300, 2, 3, 96), (64, 1, 1, 1)])
+@pytest.mark.parametrize("n_wanted", [0, 3])
+def test_ritz_residual(dev, D, B_, C, k, n_wanted):
+    """K10 against its twin on random fused blocks, the sweep's (C = 3)
+    and the stacked solver's (B = 1, C = 1) shapes, k from 1 to 96."""
+    _check_ritz(*_ritz_inputs(dev, D, B_, C, k, D + k), n_wanted)
+
+
+@pytest.mark.parametrize("noise", [0.0, 1e-6, 1e-4])
+def test_ritz_residual_near_the_f32_floor(dev, noise):
+    """K10 where the Ritz pairs are exact up to ``noise``: AQ = BQ Ys
+    diag(theta) Ys^-1 + noise N, so the residuals sit at the f32
+    rounding floor (~1e-7) or at ``noise``. There the kernel and its
+    twin sum in other orders, and they still agree to 1e-6 + 1e-3 res,
+    the gate too (at config-1's k = 22, B = 2)."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    D, B_, k = 3000, 2, 22
+    BQ = torch.randn((D, B_, 3, k), generator=gen, device=dev)
+    Ys = (torch.eye(k, device=dev)
+          + 0.1 * torch.randn((B_, k, k), generator=gen, device=dev))
+    theta = (1.0 + torch.rand((B_, k), generator=gen, device=dev)).sort(
+        dim=1).values.contiguous()
+    M = Ys @ torch.diag_embed(theta) @ torch.linalg.inv(Ys)
+    AQ = (torch.einsum("dbck,bkl->dbcl", BQ.double(), M.double()).float()
+          + noise * torch.randn((D, B_, 3, k), generator=gen, device=dev))
+    cuts = torch.full((B_,), 1.5, device=dev)
+    res, _ = ck.ritz_residual(AQ.contiguous(), BQ, Ys.contiguous(), theta,
+                              cuts, 0)
+    assert float(res.max()) < max(30 * noise, 1e-5)
+    _check_ritz(AQ.contiguous(), BQ, Ys.contiguous(), theta, cuts, 0)
+
+
+def test_ritz_residual_on_a_filtered_subspace(setup, dev):
+    """K10 on the Rayleigh-Ritz of a filtered subspace of the small mesh
+    (60 filter steps on the card): the residuals K10 and its twin give
+    agree, wanted and near-converged ones included, and the gate of the
+    fused Rayleigh-Ritz is K10's."""
+    s = setup
+    ga, gs, qs = s["ga"], s["gs"], s["qs"]
+    D = ga.interior_mask.shape[0]
+    _, diag = ta.assemble_vector3_qf(
+        ga, ta.eps_arrays(MCFGeometry(3, 8.0, 1.5, 1.535, 1.0)
+                          .eps_params(), dev))
+    parks = torch.full((B,), 400.0, device=dev)
+    cuts = (s["betas"] ** 2).contiguous()
+    Xff = tk.cheb_sweep_filter(
+        qs, gs, ga.interior_mask, 1.0 / torch.sqrt(diag),
+        np.float32(tk.MASS_LO), np.float32(tk.MASS_HI), parks, s["betas"],
+        1.0, s["X"].reshape(D, B, 3, K), cuts,
+        torch.full((B,), 4e3, device=dev), degree=60, binv_degree=1)
+    _, AQ, BQ, theta, Ys = tk._sweep_ritz(qs, gs, ga.interior_mask, parks,
+                                          s["betas"], 1.0, Xff)
+    _check_ritz(AQ, BQ, Ys.contiguous(), theta.contiguous(), cuts, 4)
+    n0 = ck.ritz_residual.launches
+    _, _, res, gate = tk.cheb_sweep_rr_impl(qs, gs, ga.interior_mask, parks,
+                                            s["betas"], 1.0, Xff, cuts, 4)
+    assert ck.ritz_residual.launches == n0 + 1
+    assert float(gate) == float(tk._sweep_gate_maxres(theta, res, cuts, 4))
+
+
+def test_ritz_residual_in_the_scalar_pass(setup, scalar_setup, dev,
+                                          monkeypatch):
+    """The stacked solver's pass (C = 1) launches K10 once on its block
+    viewed as one design (B = 1, C = 1), and gives the residuals and gate
+    of the same pass with the twin in K10's place (1e-6 + 1e-3 res)."""
+    ga, gs = setup["ga"], setup["gs"]
+    ss = scalar_setup
+    lo, hi, bound = tk.pencil_bounds_elem(ss["A"], ss["B"], ga.elem_valid)
+    dinv = 1.0 / torch.sqrt(torch.clamp(ss["diag"], min=1e-30))
+    D = ga.dof_valid.shape[0]
+    X = torch.randn((D, 22), generator=setup["gen"], device=dev)
+    g = ss["g"]
+    cut = torch.tensor(-(g.k0 * g.n_clad) ** 2 * 0.99, device=dev)
+    bound = torch.clamp(bound, min=1.05)
+
+    def run():
+        return tk.cheb_rr_pass_impl(ss["A"], ga.qp_w, gs, ga.dof_valid,
+                                    dinv, lo, hi, 1.0, X, cut, bound, C=1,
+                                    degree=40, n_wanted=6)
+
+    n0 = ck.ritz_residual.launches
+    theta, _, res, gate = run()
+    assert ck.ritz_residual.launches == n0 + 1
+    monkeypatch.setattr(tk, "ritz_residual", tk.ritz_residual_plain)
+    theta2, _, ref, rgate = run()
+    assert torch.equal(theta, theta2)
+    assert bool(((res - ref).abs() <= 1e-6 + 1e-3 * ref).all())
+    assert abs(float(gate) - float(rgate)) <= 1e-6 + 1e-3 * float(rgate)
+
+
+def test_seed_and_ritz_wrappers_refuse_bad_input(seed_setup, dev):
+    """K9 and K10 raise on what their kernels do not take: f64 blocks,
+    CPU tensors (the twins' inputs), shapes that do not match, more than
+    96 columns (K10) or 8 entries a prolongation row (K9)."""
+    Hc, colmask, cols, wts, R1, R2, scale = seed_setup["args"]
+    with pytest.raises(TypeError):
+        ck.seed_prolong(Hc.double(), colmask, cols, wts, R1, R2, scale)
+    with pytest.raises(TypeError):                 # int64 columns
+        ck.seed_prolong(Hc, colmask, cols.long(), wts, R1, R2, scale)
+    with pytest.raises(ValueError):                # CPU tensors
+        ck.seed_prolong(Hc.cpu(), colmask.cpu(), cols.cpu(), wts.cpu(),
+                        R1.cpu(), R2.cpu(), scale)
+    with pytest.raises(ValueError):                # noise of another layout
+        ck.seed_prolong(Hc, colmask, cols, wts,
+                        tk._stacked_from_fused(R1).contiguous(), R2, scale)
+    wide = torch.zeros((cols.shape[0], 9), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):                # 9 entries a row
+        ck.seed_prolong(Hc, colmask, wide, wide.float(), R1, R2, scale)
+    AQ, BQ, Ys, theta, cuts = _ritz_inputs(dev, 100, 2, 3, 9, 1)
+    with pytest.raises(TypeError):
+        ck.ritz_residual(AQ.double(), BQ, Ys, theta, cuts)
+    with pytest.raises(ValueError):                # CPU tensors
+        ck.ritz_residual(AQ.cpu(), BQ.cpu(), Ys.cpu(), theta.cpu(),
+                         cuts.cpu())
+    with pytest.raises(ValueError):                # the stacked layout
+        ck.ritz_residual(tk._stacked_from_fused(AQ), BQ, Ys, theta, cuts)
+    with pytest.raises(ValueError):                # cuts of another B
+        ck.ritz_residual(AQ, BQ, Ys, theta, cuts[:1].contiguous())
+    with pytest.raises(ValueError):                # not contiguous
+        ck.ritz_residual(AQ, BQ, Ys.transpose(1, 2), theta, cuts)
+    big = _ritz_inputs(dev, 40, 1, 1, 97, 2)
+    with pytest.raises(ValueError):
+        ck.ritz_residual(*big)
+
+
+def test_seed_and_ritz_from_two_threads(seed_setup, dev):
+    """K9 and K10 launched by two threads at once, 500 rounds each (a
+    spin kernel first keeps the stream full): no launch fails, and every
+    result equals, bit for bit, what one thread got. Each launch takes
+    its scratch from ``torch.empty``, never a shared buffer."""
+    seeds = [seed_setup["args"],
+             seed_setup["args"][:6] + (seed_setup["args"][6] * 2.0,)]
+    ritz = [_ritz_inputs(dev, 900, 3, 3, 22, 5),
+            _ritz_inputs(dev, 1500, 1, 1, 42, 6)]
+
+    def launch_all(i):
+        return (ck.seed_prolong(*seeds[i]),) + ck.ritz_residual(*ritz[i], 2)
+
+    refs = [launch_all(i) for i in range(2)]
+    differ = [torch.zeros((), dtype=torch.int64, device=dev)
+              for _ in range(2)]
+    rounds = [0, 0]
+    errors = []
+    start = threading.Barrier(2)
+
+    def worker(i):
+        try:
+            start.wait(60)
+            for _ in range(500):
+                torch.cuda._sleep(100000)
+                for y, r in zip(launch_all(i), refs[i]):
+                    differ[i] += (y != r).sum()
+                rounds[i] += 1
+            torch.cuda.synchronize()
+        except Exception as exc:      # reported below, with its thread
+            errors.append((i, repr(exc)))
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == []
+    assert rounds == [500, 500]
+    assert [int(d) for d in differ] == [0, 0]
+
+
+def test_rayleigh_ritz_linalg_from_two_threads(dev):
+    """The Rayleigh-Ritz's QR (``kernels._fused_qr``) and small
+    eigenproblems (``kernels._ritz_pairs``), with K10 between them, from
+    two threads at once for 15 s each at the r5 bucket shapes (3D =
+    552960, B = 1, k = 38, and 3D = 466944, B = 5, k = 42), as the
+    dataset engine's bucket pipeline runs them: no call fails. Without
+    ``kernels._LINALG_LOCK`` two threads' QRs failed with
+    CUSOLVER_STATUS_INTERNAL_ERROR on an H100 in each of four 60 s runs."""
+    errors, rounds = [], [0, 0]
+    start = threading.Barrier(2)
+
+    def worker(i):
+        gen = torch.Generator(device=dev).manual_seed(i)
+        D, B_, k = (184320, 1, 38) if i == 0 else (155648, 5, 42)
+        X = torch.randn((D, B_, 3, k), generator=gen, device=dev)
+        cuts = torch.full((B_,), 1.5, device=dev)
+        eye = torch.eye(k, device=dev)
+        try:
+            start.wait(60)
+            t_end = time.time() + 15.0
+            while time.time() < t_end:
+                Qf = tk._fused_qr(X)
+                H = tk._fused_gram(Qf, Qf) + eye
+                theta, Ys = tk._ritz_pairs(H, H + eye)
+                _, gate = ck.ritz_residual(Qf, Qf, Ys.contiguous(),
+                                           theta.contiguous(), cuts, 4)
+                float(gate)
+                rounds[i] += 1
+        except Exception as exc:      # reported below, with its thread
+            errors.append((i, repr(exc)))
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == []
+    assert min(rounds) > 0

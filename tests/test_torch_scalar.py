@@ -340,7 +340,7 @@ def test_cheb_rr_pass_matches_jax(fiber):
         jnp.float32(lo), jnp.float32(hi), jnp.float32(1.0), jnp.asarray(X0),
         jnp.float32(cut), jnp.float32(bound), C=1, degree=120, binv_degree=8)
     pen = tsc.scalar_pencil_from_numpy(dg, jA, jB, jdiag, g.k0, "cpu")
-    tth, tX, tres = tk.cheb_rr_pass_impl(
+    tth, tX, tres, _ = tk.cheb_rr_pass_impl(
         pen.A_blocks, pen.ga.qp_w, ta.gather_scatter(pen.ga),
         pen.ga.dof_valid, _t(dinv), np.float32(lo), np.float32(hi), 1.0,
         _t(X0), torch.tensor(np.float32(cut)),

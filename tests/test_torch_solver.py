@@ -31,6 +31,7 @@ from pl_fem_tpu_torch.config import (MeshConfig, SimulationConfig,
 from pl_fem_tpu_torch.models import MCFGeometry
 from pl_fem_tpu_torch.ops.analytic import vector_modes
 from pl_fem_tpu_torch.ops.femgrid import MeshGenerator, export_device_grid
+from pl_fem_tpu_torch.ops.kernels import _stacked_from_fused
 from pl_fem_tpu_torch.solvers import TrueVectorialMaxwellSolver
 from pl_fem_tpu_torch.solvers import vectorial as tv
 
@@ -197,6 +198,7 @@ def _bootstrap_pair(monkeypatch, aligned: bool):
     assert boots["jax"] is not None and boots["port"] is not None
     jX0, jbeta, jused = boots["jax"]
     X0, beta, used = boots["port"]
+    X0 = _stacked_from_fused(X0)      # the port's seed is the fused block
     assert np.array_equal(used, jused) and used.all()
     assert np.all(np.abs(beta - jbeta) <= 1e-5 * np.abs(jbeta))
     jX0 = np.asarray(jX0)
@@ -249,12 +251,13 @@ def test_seed_from_coarse_matches_jax():
              for kk in (k1, k2)]
     out = tv._seed_from_coarse(Hc.astype(np.float32), colmask, Pcols, Pwts,
                                "cpu", noise=noise)
-    assert out.shape == (3 * Dp, B, k)
+    assert out.shape == (Dp, B, 3, k)         # the filter's fused layout
+    out = _stacked_from_fused(out)
     assert np.abs(out.numpy() - ref).max() <= 1e-5
     gen = torch.Generator().manual_seed(11)
     drawn = tv._seed_from_coarse(Hc.astype(np.float32), colmask, Pcols,
                                  Pwts, "cpu", generator=gen)
-    norms = torch.linalg.vector_norm(drawn, dim=0)
+    norms = torch.linalg.vector_norm(drawn, dim=(0, 2))
     assert torch.allclose(norms, torch.ones_like(norms), atol=1e-5)
 
 
