@@ -17,7 +17,8 @@ In order:
    shapes (B = 8 designs, k = 22 columns) to within 1e-5 of max|y|, and
    times both with CUDA events beside the kernel's bound (the bytes the
    function must move at 3.35 TB/s, or its f32 operations at 67
-   TFLOP/s) and, where one PyTorch call computes the same function, that
+   TFLOP/s, TF32 ones on the tensor cores at 495) and, where one
+   PyTorch call computes the same function, that
    call (a cuSPARSE SpMM for K2 without epilogue and for K3). K1, the
    whole A(beta) apply, must take one launch and repeat bit for bit; its
    plan's rows per block and element evaluations per element are
@@ -59,8 +60,11 @@ In order:
    of max|X| of its twin, K10's residuals within 1e-6 + 1e-3 of the
    twin's and its gate the maximum of its own residuals over the wanted
    set, within the same of the twin's; both bitwise repeatable, one
-   launch each, timed beside their twins and their byte bounds (no
-   single PyTorch call computes either);
+   launch each, timed (CUDA events and the profiler's device time)
+   beside their twins and their bounds (K9's the bytes its colmask
+   needs, with the whole-block count beside it; K10's the larger of its
+   bytes and its 3xTF32 products at the tensor cores' TF32 rate) and
+   the share of the bound (no single PyTorch call computes either);
 4. runs the main path twice, warm-up then timed:
    ``TrueVectorialMaxwellSolver.solve_sweep`` over 8 wavelengths
    1.50-1.64 um in fast mode (cheb_degree 200, cheb_passes 2,
@@ -144,6 +148,7 @@ KERNEL_RTOL = 1e-5           # of max|y|, f32 kernel vs f32 twin
 # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12    # dense, on the tensor cores
 # K1's f32 operations per (element, design, column, quadrature point):
 # values and gradients 108, curl / divergence terms 17, pull-back 108
 K1_FLOPS_PER_POINT = 233
@@ -201,6 +206,11 @@ def _device_ms(fn, kernels: int, reps: int = 20):
     return sum(spans) / 1e3 / reps
 
 
+def _share(bound_ms, ms) -> str:
+    """The bound as a share of a measured time, or "not measured"."""
+    return "not measured" if ms is None else f"{100.0 * bound_ms / ms:.0f}%"
+
+
 def _finite(*xs) -> bool:
     return all(x is not None and math.isfinite(x) for x in xs)
 
@@ -208,7 +218,8 @@ def _finite(*xs) -> bool:
 def _compare(name, kernel_fn, plain_fn, bound, library_fn=None):
     """Run kernel and twin on the same inputs, then time both (and the
     library yardstick, if any). ``bound`` is (bytes, flops) of the
-    function; returns the kernel's row of the JSON line."""
+    function, the flops at the f32 rate, or (bytes, ops seconds) given
+    as a third item; returns the kernel's row of the JSON line."""
     import torch
 
     y = kernel_fn()
@@ -222,9 +233,9 @@ def _compare(name, kernel_fn, plain_fn, bound, library_fn=None):
     ms = _event_ms(kernel_fn)
     plain_ms = _event_ms(plain_fn)
     library_ms = None if library_fn is None else _event_ms(library_fn)
-    nbytes, flops = bound
+    nbytes, flops = bound[:2]
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = (bound[2] if len(bound) > 2 else flops / F32_FLOPS_PER_S) * 1e3
     bound_ms = max(t_bytes, t_ops)
     lib = "" if library_ms is None else f"  library {library_ms:.3f} ms"
     print(f"  {name}: max_abs_err={err:.3e} (max|y|={scale:.3e}, limit "
@@ -883,18 +894,32 @@ def _seed_checks(dg, geoms, n_modes, cfg, dev):
     norms = torch.linalg.vector_norm(X, dim=(0, 2))
     if not torch.allclose(norms, torch.ones_like(norms), atol=1e-5):
         raise AssertionError("K9's columns are not unit")
-    # Hc, the mask, the tables, R1 and R2 read once, X written once; per
-    # element W gather FMAs, the six column sums and the blend
-    nbytes = 4 * (Hc.numel() + B * k + 2 * Dp * W + 3 * Dp * B * 3 * k)
+    # the bytes this mask needs: R1 on the columns that are not seeded
+    # (colmask != 1), Hc on those whose F counts (!= 0), R2 read and X
+    # written whole, the mask and the tables; per element W gather FMAs,
+    # the six column sums and the blend. Beside it the bound with R1 and
+    # Hc whole (the count before the kernel skipped what the mask zeroes)
+    n_r1 = int((colmask != 1.0).sum())
+    n_f = int((colmask != 0.0).sum())
+    nbytes = 4 * (3 * nc * n_f + B * k + 2 * Dp * W + 3 * Dp * n_r1
+                  + 2 * Dp * B * 3 * k)
+    whole = 4 * (Hc.numel() + B * k + 2 * Dp * W + 3 * Dp * B * 3 * k)
     row = _compare(f"K9 seed_prolong (Dp = {Dp}, B = {B}, k = {k})",
                    lambda: ck.seed_prolong(*args),
                    lambda: tkn.seed_prolong_plain(*args),
                    (nbytes, (2 * W + 17) * Dp * B * 3 * k))
-    row.update(Dp=Dp, B=B, k=k, nc=nc, W=W,
-               device_ms=_device_ms(lambda: ck.seed_prolong(*args), 2),
+    row.update(Dp=Dp, B=B, k=k, nc=nc, W=W, seeded=B * k - n_r1,
+               bound_ms_whole=whole / HBM_BYTES_PER_S * 1e3,
+               device_ms=_device_ms(lambda: ck.seed_prolong(*args), 3),
                host_ms=_host_ms(lambda: ck.seed_prolong(*args)))
-    print(f"  K9 device time (profiler, both launches) {row['device_ms']} "
-          f"ms, host time per call {row['host_ms']:.4f} ms", flush=True)
+    print(f"  K9 device time (profiler, its three launches) "
+          f"{row['device_ms']} ms, host time per call {row['host_ms']:.4f} "
+          f"ms; bound {row['bound_ms']:.4f} ms by bytes at this mask "
+          f"({B * k - n_r1} of {B * k} columns seeded), "
+          f"{row['bound_ms_whole']:.4f} ms with R1 and Hc whole; share "
+          f"{_share(row['bound_ms'], row['ms'])} (events), "
+          f"{_share(row['bound_ms'], row['device_ms'])} (device)",
+          flush=True)
     return row
 
 
@@ -978,18 +1003,28 @@ def _rr_checks(dg, geoms, k, n_wanted, cfg, dev):
           f"twin| = {err:.3e}; gate {float(gate):.6e}, twin's "
           f"{float(rgate):.6e}", flush=True)
     # AQ and BQ read once (Ys, theta, cuts and the outputs are KBs); per
-    # row and design 2 k^2 FMAs for u and v, 6 k for R and the squares
+    # row and design the 3xTF32 products of u and v, 3 x 4 k^2 operations
+    # at the tensor cores' TF32 rate, and 6 k f32 ones for R and the
+    # squares
+    rows = B * 3 * D
+    ops_s = (12 * k * k * rows / TF32_FLOPS_PER_S
+             + 6 * k * rows / F32_FLOPS_PER_S)
     row = _compare(f"K10 ritz_residual (3D = {3 * D}, B = {B}, k = {k})",
                    lambda: ck.ritz_residual(*args)[0],
                    lambda: tkn.ritz_residual_plain(*args)[0],
                    (8 * D * B * 3 * k + 4 * (B * k * k + 2 * B * k + B),
-                    B * 3 * D * (4 * k * k + 6 * k)))
+                    rows * (12 * k * k + 6 * k), ops_s))
     row.update(gate_abs_err=gate_err, wanted=int(wanted.sum()),
                wanted_res=wres,
                device_ms=_device_ms(lambda: ck.ritz_residual(*args), 2),
                host_ms=_host_ms(lambda: ck.ritz_residual(*args)))
     print(f"  K10 device time (profiler, both launches) {row['device_ms']} "
-          f"ms, host time per call {row['host_ms']:.4f} ms", flush=True)
+          f"ms, host time per call {row['host_ms']:.4f} ms; bound "
+          f"{row['bound_ms']:.4f} ms by {row['bound_by']} (operations "
+          f"{ops_s * 1e3:.4f} ms); share "
+          f"{_share(row['bound_ms'], row['ms'])} (events), "
+          f"{_share(row['bound_ms'], row['device_ms'])} (device)",
+          flush=True)
     del res, ref, again, AQ, BQ
 
     def peak_mib():

@@ -71,8 +71,8 @@ _SIGNATURES = {
     "pl_pencil_bounds_vector3": [_P] * 5 + [_F, _P, _P, _F, _F]
                                 + [_I] * 3 + [_P] * 3,
     "pl_seed_prolong_blocks": [_I] * 3,
-    "pl_seed_prolong": [_P] * 6 + [_F] + [_I] * 5 + [_P] * 3,
-    "pl_ritz_residual_blocks": [_I] * 2,
+    "pl_seed_prolong": [_P] * 6 + [_F] + [_I] * 5 + [_P] * 4,
+    "pl_ritz_residual_blocks": [_I] * 4,
     "pl_ritz_residual": [_P] * 5 + [_I] * 5 + [_P] * 4,
 }
 _LIB: Optional[ctypes.CDLL] = None
@@ -760,9 +760,11 @@ def seed_prolong(Hc, colmask, cols, wts, R1, R2, scale: float):
     Hc (B, 3, nc, k) f32 coarse Ritz vectors; colmask (B, k) f32; cols
     (Dp, W) int32 and wts (Dp, W) f32 the prolongation's padded rows; R1,
     R2 (Dp, B, 3, k) f32 standard-normal blocks. Returns X (Dp, B, 3, k).
-    Two launches (the column sums, then the blend) count as one. CUDA
-    tensors only: its twin is ``kernels.seed_prolong_plain``, and
-    ``solvers/vectorial._seed_from_coarse`` takes it on the CPU.
+    Where colmask is exactly 1 the kernel does not read R1, where it is
+    exactly 0 it does not gather F (their coefficients are 0). Three
+    launches (the column sums, their coefficients, the blend) count as
+    one. CUDA tensors only: its twin is ``kernels.seed_prolong_plain``,
+    and ``solvers/vectorial._seed_from_coarse`` takes it on the CPU.
     """
     dev = Hc.device
     if dev.type != "cuda":
@@ -782,14 +784,18 @@ def seed_prolong(Hc, colmask, cols, wts, R1, R2, scale: float):
     _require(wts, "wts", f32, dev, (Dp, W))
     _require(R1, "R1", f32, dev, (Dp, B, 3, k))
     _require(R2, "R2", f32, dev, (Dp, B, 3, k))
+    for t, name in ((R1, "R1"), (R2, "R2")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     L = lib()
-    partial = torch.empty((B, L.pl_seed_prolong_blocks(Dp, B, k), 6, k),
+    partial = torch.empty((L.pl_seed_prolong_blocks(Dp, B, k), 6, B * k),
                           dtype=torch.float64, device=dev)
+    coef = torch.empty((3, B * k), dtype=f32, device=dev)
     X = torch.empty((Dp, B, 3, k), dtype=f32, device=dev)
     rc = L.pl_seed_prolong(
         Hc.data_ptr(), colmask.data_ptr(), cols.data_ptr(), wts.data_ptr(),
         R1.data_ptr(), R2.data_ptr(), float(scale), Dp, B, nc, k, W,
-        partial.data_ptr(), X.data_ptr(), _stream(dev))
+        partial.data_ptr(), coef.data_ptr(), X.data_ptr(), _stream(dev))
     _check(rc, "seed_prolong")
     _count(seed_prolong)
     return X
@@ -812,8 +818,9 @@ def ritz_residual(AQ, BQ, Ys, theta, cuts, n_wanted: int = 0):
 
     AQ, BQ (D, B, C, k) f32 in the fused layout (C = 1 for the stacked
     solver's (C D, k) block viewed as (C D, 1, 1, k)); Ys (B, k, k);
-    theta (B, k); cuts (B,). Returns res (B, k) and the gate, a 0-d
-    tensor. Two launches (the rows, then the partials and the gate)
+    theta (B, k); cuts (B,). AQ and BQ start on 16 bytes (the kernel
+    streams them in 16-byte copies). Returns res (B, k) and the gate, a
+    0-d tensor. Two launches (the rows, then the partials and the gate)
     count as one. CUDA tensors only: its twin is
     ``kernels.ritz_residual_plain``, and ``kernels.ritz_residual_gate``
     takes it on the CPU.
@@ -834,9 +841,15 @@ def ritz_residual(AQ, BQ, Ys, theta, cuts, n_wanted: int = 0):
     _require(Ys, "Ys", f32, dev, (B, k, k))
     _require(theta, "theta", f32, dev, (B, k))
     _require(cuts, "cuts", f32, dev, (B,))
+    for t, name in ((AQ, "AQ"), (BQ, "BQ")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     L = lib()
-    partial = torch.empty((B, L.pl_ritz_residual_blocks(D, B), 2, k),
-                          dtype=torch.float64, device=dev)
+    nP = L.pl_ritz_residual_blocks(D, B, C, k)
+    if nP < 1:
+        raise ValueError(f"ritz_residual takes no block of shape "
+                         f"{(D, B, C, k)}")
+    partial = torch.empty((B, nP, 2, k), dtype=torch.float64, device=dev)
     res = torch.empty((B, k), dtype=f32, device=dev)
     gate = torch.empty((), dtype=f32, device=dev)
     rc = L.pl_ritz_residual(

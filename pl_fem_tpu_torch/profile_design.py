@@ -2,7 +2,7 @@
 sweep's phase seconds, on one NVIDIA GPU.
 
     python3 pl_fem_tpu_torch/profile_design.py [--repo DIR] [--out FILE]
-        [--scalar]
+        [--scalar | --kernels]
 
 ``--repo`` names the checkout whose ``pl_fem_tpu_torch`` is measured
 (default: the one holding this file; it must have ``workloads.py`` and
@@ -28,6 +28,17 @@ in ``pl_fem_tpu_torch/workloads.py``. Three measurements:
    prints the wall time, the device time (the sum of the kernel and
    copy intervals), the device's idle share and the device time by
    kernel family.
+
+``--kernels`` times K9 (``seed_prolong``, the bootstrap seed) and K10
+(``ritz_residual``, the Rayleigh-Ritz residuals and gate) alone, on the
+inputs ``chip_smoke.py`` builds: the coarse vectors, seeded-column mask
+and prolongation tables of one real bootstrap with fresh noise, and the
+Rayleigh-Ritz of two filter passes from a random block; at the config-1
+sweep's B = 8, k = 22 and at B = 5 taper slices of the 7-core design on
+a mesh at the r5 settings, k = 42 (the largest k of the r5 dataset
+run). Each is timed with CUDA events and by the profiler's device time,
+beside its twin; K9 also with no column seeded (no F gathered, R1 read
+whole), which shows what its gathers cost.
 
 ``--scalar`` measures the scalar path instead:
 
@@ -323,6 +334,154 @@ def apply_times(reps: int = 20):
     return out
 
 
+def _device_ms(fn, reps: int = 20) -> float:
+    """Device milliseconds per call of ``fn``: the CUDA intervals
+    torch.profiler records over ``reps`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               ) / 1e3 / reps
+
+
+def _seed_inputs(dg, geoms, n_modes, cfg, dev):
+    """K9's arguments: the coarse vectors, mask and tables of one real
+    bootstrap of ``geoms`` on ``dg`` (recorded from the solver's call),
+    with fresh standard-normal blocks."""
+    import numpy as np
+    import torch
+
+    from pl_fem_tpu_torch.solvers import vectorial as tvec
+
+    seed = tvec._seed_from_coarse
+    got = {}
+
+    def recorded(Hc, colmask, Pcols, Pwts, *args, **kw):
+        got["inputs"] = (Hc, colmask, Pcols, Pwts)
+        return seed(Hc, colmask, Pcols, Pwts, *args, **kw)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    tvec._seed_from_coarse = recorded
+    try:
+        tvec.TrueVectorialMaxwellSolver._bootstrap_sweep(geoms, dg, n_modes,
+                                                         cfg, gen)
+    finally:
+        tvec._seed_from_coarse = seed
+    Hc, colmask, cols, wts = got["inputs"]
+    Hc = torch.tensor(Hc, device=dev)
+    colmask = torch.tensor(colmask, device=dev)
+    B, _, _, k = Hc.shape
+    Dp = cols.shape[0]
+    R1, R2 = (torch.randn((Dp, B, 3, k), generator=gen, device=dev)
+              for _ in range(2))
+    scale = float(np.float32(0.05 / np.sqrt(np.float32(3 * Dp))))
+    return Hc, colmask, cols, wts, R1, R2, scale
+
+
+def _ritz_inputs(dg, geoms, k, n_wanted, cfg, dev):
+    """K10's arguments: the Rayleigh-Ritz of the Ritz vectors of two
+    filter passes (the config's degree, B^-1 degree 4) from a random
+    block, cuts and parks as ``solve_sweep`` sets them."""
+    import numpy as np
+    import torch
+
+    from pl_fem_tpu_torch.ops import assembly as ta
+    from pl_fem_tpu_torch.ops import kernels as tk
+    from pl_fem_tpu_torch.solvers.vectorial import lp01_neff_estimate
+
+    ga = ta.grid_to_device(dg, dev)
+    gs = ta.gather_scatter(ga)
+    qs, diag = ta.assemble_vector3_sweep(
+        ga, gs, [ta.eps_arrays(g.eps_params(), dev) for g in geoms])
+    alpha = cfg.solver.alpha_penalty
+    betas = np.array([g.k0 * lp01_neff_estimate(
+        g.k0, float(np.mean(g.core_radii)), g.n_core, g.n_clad)
+        for g in geoms])
+    cuts = np.array([min(b ** 2 / g.n_clad ** 2, 1.35 * g.k0 ** 2)
+                     for b, g in zip(betas, geoms)])
+    parks = 10.0 * np.maximum(cuts, 1.0)
+
+    def f32(a):
+        return torch.tensor(np.asarray(a, dtype=np.float32), device=dev)
+
+    bounds = tk.pencil_bounds_sweep(qs, ga.shape_vals, ga.elem_valid,
+                                    betas, alpha).cpu().numpy() * 1.1
+    B, D = len(geoms), dg.n_dofs_padded
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    X = torch.randn((3 * D, B, k), generator=gen, device=dev)
+    _, Xr, _ = tk.solve_lowest_sweep(
+        qs, gs, ga.interior_mask, diag, X, cuts, betas, alpha, bounds,
+        degree=cfg.solver.cheb_degree, passes=2, max_passes=2, parks=parks,
+        binv_degree=4, n_wanted=n_wanted)
+    _, AQ, BQ, theta, Ys = tk._sweep_ritz(
+        qs, gs, ga.interior_mask, f32(parks), f32(betas), float(alpha),
+        tk._fused_from_stacked(Xr))
+    return (AQ, BQ, Ys.contiguous(), theta.contiguous(), f32(cuts),
+            n_wanted)
+
+
+def seed_rr_times(reps: int = 20, k_r5: int = 42):
+    """K9 and K10 at the config-1 and r5 shapes (see the module note):
+    CUDA-event and device milliseconds a call, and the twin's."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pl_fem_tpu_torch import cli
+    from pl_fem_tpu_torch import workloads as wl
+    from pl_fem_tpu_torch.models import MCFGeometry
+    from pl_fem_tpu_torch.ops import cuda_kernels as ck
+    from pl_fem_tpu_torch.ops import kernels as tk
+
+    dev = torch.device("cuda")
+    cfg, _, dg1, geoms1 = wl.config1_sweep()
+    with tempfile.TemporaryDirectory(prefix="profile_design_") as tmp:
+        rcfg = cli.generator(wl.dataset_argv(tmp))[0].config
+    slices = [MCFGeometry(7, 8.0 * sc, 1.5 * sc, 1.535, 1.0,
+                          wavelength_um=1.55)
+              for sc in np.linspace(rcfg.cmt_min_scale, 1.0,
+                                    wl.DATASET_CMT_SLICES)]
+    k1 = wl.N_MODES + cfg.solver.extra_vectors
+    extra = rcfg.solver.extra_vectors
+    out = {}
+    for name, dg, geoms, c, k, n_wanted in (
+            ("config1", dg1, geoms1, cfg, k1, min(k1, wl.N_MODES + 4)),
+            ("r5", _r5_grid(), slices, rcfg, k_r5,
+             min(k_r5, k_r5 - extra + 4))):
+        seed = _seed_inputs(dg, geoms, k - c.solver.extra_vectors, c, dev)
+        ritz = _ritz_inputs(dg, geoms, k, n_wanted, c, dev)
+        row = {"Dp": int(dg.n_dofs_padded), "B": len(geoms), "k": k,
+               "seeded": int((seed[1] == 1.0).sum())}
+        # K9 again with no column seeded: no F gathered, R1 read whole
+        unseeded = (seed[0], torch.zeros_like(seed[1])) + seed[2:]
+        for kname, kernel, twin, args in (
+                ("K9", ck.seed_prolong, tk.seed_prolong_plain, seed),
+                ("K9_unseeded", ck.seed_prolong, tk.seed_prolong_plain,
+                 unseeded),
+                ("K10", ck.ritz_residual, tk.ritz_residual_plain, ritz)):
+            row[kname] = {
+                "ms": _event_ms(lambda: kernel(*args), reps),
+                "device_ms": _device_ms(lambda: kernel(*args), reps),
+                "plain_ms": _event_ms(lambda: twin(*args), 5)}
+            print(f"{kname} at {name} (Dp={row['Dp']}, B={row['B']}, "
+                  f"k={k}): {json.dumps(row[kname])}", flush=True)
+        out[name] = row
+        del seed, unseeded, ritz
+        torch.cuda.empty_cache()
+    return out
+
+
 def dataset_design(n_cores: int = 7, scalar: bool = False):
     """The warm profile of one r5 dataset design (see the module note):
     through the sweep engine, or with ``scalar`` through the serial
@@ -408,6 +567,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None)
     ap.add_argument("--scalar", action="store_true",
                     help="profile one scalar dataset design instead")
+    ap.add_argument("--kernels", action="store_true",
+                    help="time K9 and K10 alone instead")
     args = ap.parse_args(argv)
     repo = Path(args.repo).resolve()
     if sys.path and Path(sys.path[0] or ".").resolve() == HERE:
@@ -423,7 +584,10 @@ def main(argv=None) -> int:
     card = _card()
     print(f"card: {card}; package {Path(pl_fem_tpu_torch.__file__).parent}",
           flush=True)
-    if args.scalar:
+    if args.kernels:
+        result = {"card": card, "repo": str(repo),
+                  "seed_rr_ms": seed_rr_times()}
+    elif args.scalar:
         result = {"card": card, "repo": str(repo),
                   "scalar_solve": scalar_solves(SWEEPS),
                   "stacked_apply_ms": stacked_apply_times(),

@@ -1008,12 +1008,69 @@ def _check_ritz(AQ, BQ, Ys, theta, cuts, n_wanted=0):
 
 @pytest.mark.parametrize("D,B_,C,k", [(700, 3, 3, 7), (1000, 8, 3, 22),
                                       (613, 5, 3, 42), (2000, 1, 1, 22),
-                                      (300, 2, 3, 96), (64, 1, 1, 1)])
+                                      (300, 2, 3, 96), (64, 1, 1, 1),
+                                      (613, 1, 1, 27), (155648, 5, 3, 42),
+                                      (500, 3, 3, 93), (257, 40, 3, 42)])
 @pytest.mark.parametrize("n_wanted", [0, 3])
 def test_ritz_residual(dev, D, B_, C, k, n_wanted):
     """K10 against its twin on random fused blocks, the sweep's (C = 3)
-    and the stacked solver's (B = 1, C = 1) shapes, k from 1 to 96."""
+    and the stacked solver's (B = 1, C = 1) shapes, k from 1 to 96: a
+    tail tile (D not a multiple of the tile) with node rows that do not
+    start on 16 bytes (B C k = 27), the r5 shape, and designs split into
+    groups whose rows are copied in 16-byte chunks (k = 96) or element by
+    element (k = 93, and B = 40 at k = 42)."""
     _check_ritz(*_ritz_inputs(dev, D, B_, C, k, D + k), n_wanted)
+
+
+def test_seed_and_ritz_refuse_misaligned_blocks(seed_setup, dev):
+    """K10 streams AQ and BQ, K9 R1 and R2, in 16-byte copies: a view
+    that does not start on 16 bytes is refused, not read."""
+    AQ, BQ, Ys, theta, cuts = _ritz_inputs(dev, 100, 2, 3, 8, 3)
+    n = AQ.numel()
+    buf = torch.empty(n + 1, device=dev)
+    shifted = buf[1:].view(AQ.shape)
+    shifted.copy_(AQ)
+    with pytest.raises(ValueError, match="16-byte"):
+        ck.ritz_residual(shifted, BQ, Ys, theta, cuts)
+    with pytest.raises(ValueError, match="16-byte"):
+        ck.ritz_residual(AQ, shifted, Ys, theta, cuts)
+    Hc, colmask, cols, wts, R1, R2, scale = seed_setup["args"]
+    buf = torch.empty(R1.numel() + 1, device=dev)
+    R1s = buf[1:].view(R1.shape)
+    R1s.copy_(R1)
+    with pytest.raises(ValueError, match="16-byte"):
+        ck.seed_prolong(Hc, colmask, cols, wts, R1s, R2, scale)
+    with pytest.raises(ValueError, match="16-byte"):
+        ck.seed_prolong(Hc, colmask, cols, wts, R1, R1s, scale)
+
+
+@pytest.mark.parametrize("kind", ["ones", "zeros", "prefix", "between"])
+def test_seed_prolong_colmask_kinds(seed_setup, dev, kind):
+    """K9 against its twin (1e-5 of max|X|), one launch, the same bits
+    from a second launch, for every kind of colmask its skips meet: all
+    seeded (R1 never read), none seeded (F never gathered), seeded
+    prefixes as the bootstrap makes them, and values between 0 and 1
+    (both read)."""
+    Hc, colmask, cols, wts, R1, R2, scale = seed_setup["args"]
+    Bs, k = colmask.shape
+    if kind == "ones":
+        m = torch.ones_like(colmask)
+    elif kind == "zeros":
+        m = torch.zeros_like(colmask)
+    elif kind == "prefix":
+        m = (torch.arange(k, device=dev)[None]
+             < torch.tensor([[14], [3], [k]], device=dev)).float()
+    else:
+        m = colmask.clone()
+        m[0, 2] = 0.5
+        m[2, 5] = 0.25
+        m[1, 20] = 0.75
+    args = (Hc, m.contiguous(), cols, wts, R1, R2, scale)
+    n0 = ck.seed_prolong.launches
+    X = ck.seed_prolong(*args)
+    assert ck.seed_prolong.launches == n0 + 1
+    assert _rel(tk.seed_prolong_plain(*args), X) <= 1e-5
+    assert torch.equal(X, ck.seed_prolong(*args))
 
 
 @pytest.mark.parametrize("noise", [0.0, 1e-6, 1e-4])
@@ -1137,11 +1194,17 @@ def test_seed_and_ritz_from_two_threads(seed_setup, dev):
     """K9 and K10 launched by two threads at once, 500 rounds each (a
     spin kernel first keeps the stream full): no launch fails, and every
     result equals, bit for bit, what one thread got. Each launch takes
-    its scratch from ``torch.empty``, never a shared buffer."""
+    its scratch from ``torch.empty``, never a shared buffer. The second
+    thread's K9 has colmask values between 0 and 1 and its K10 a tail
+    tile of rows that do not start on 16 bytes (B C k = 27)."""
+    Hc, colmask, cols, wts, R1, R2, scale = seed_setup["args"]
+    between = colmask.clone()
+    between[0, 2] = 0.5
+    between[2, 5] = 0.25
     seeds = [seed_setup["args"],
-             seed_setup["args"][:6] + (seed_setup["args"][6] * 2.0,)]
+             (Hc, between, cols, wts, R1, R2, scale * 2.0)]
     ritz = [_ritz_inputs(dev, 900, 3, 3, 22, 5),
-            _ritz_inputs(dev, 1500, 1, 1, 42, 6)]
+            _ritz_inputs(dev, 613, 1, 1, 27, 6)]
 
     def launch_all(i):
         return (ck.seed_prolong(*seeds[i]),) + ck.ritz_residual(*ritz[i], 2)

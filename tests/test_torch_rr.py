@@ -304,3 +304,109 @@ def test_seed_twin_writes_fused_layout():
     assert np.abs(out.numpy() - ref_f).max() <= 1e-5 * np.abs(ref_f).max()
     norms = torch.linalg.vector_norm(out, dim=(0, 2))
     assert torch.allclose(norms, torch.ones_like(norms), atol=1e-5)
+
+
+def test_seed_twin_ignores_masked_terms():
+    """The spec K9's skips rest on: with a binary colmask, R1 on the
+    seeded columns (colmask 1) and the coarse vectors, so F, on the
+    unseeded ones (colmask 0) enter the seed multiplied by exact zeros,
+    so other finite values there give the same X bit for bit. With a
+    colmask between 0 and 1 both terms count and X changes."""
+    rng = np.random.default_rng(7)
+    Bs, nc, k, Dp, W = 3, 40, 8, 64, 6
+    Hc = _t(rng.standard_normal((Bs, 3, nc, k)).astype(np.float32))
+    colmask = np.zeros((Bs, k), np.float32)
+    colmask[0, :5] = 1.0
+    colmask[1, :] = 1.0                       # design 2 stays unseeded
+    cols = _t(rng.integers(0, nc, (Dp, W)).astype(np.int32))
+    wts = _t(rng.random((Dp, W)).astype(np.float32))
+    R1, R2 = (_t(rng.standard_normal((Dp, Bs, 3, k)).astype(np.float32))
+              for _ in range(2))
+    scale = float(np.float32(0.05 / np.sqrt(np.float32(3 * Dp))))
+    seeded = _t(colmask == 1.0)               # (B, k)
+    R1x = torch.where(seeded[None, :, None, :], 1e3 * torch.flip(R1, (0,)),
+                      R1)
+    Hcx = torch.where(seeded[:, None, None, :], Hc,
+                      -7.0 * torch.flip(Hc, (2,)) + 3.0)
+
+    def seed(mask, H, A):
+        return tk.seed_prolong_plain(H, _t(mask), cols, wts, A, R2, scale)
+
+    assert torch.equal(seed(colmask, Hc, R1), seed(colmask, Hcx, R1x))
+    half = colmask.copy()
+    half[0, 1] = 0.5                          # seeded column, R1 changed
+    half[2, 3] = 0.5                          # unseeded column, Hc changed
+    a, b = seed(half, Hc, R1), seed(half, Hcx, R1x)
+    assert not torch.equal(a[:, 0, :, 1], b[:, 0, :, 1])
+    assert not torch.equal(a[:, 2, :, 3], b[:, 2, :, 3])
+
+
+def _tf32(x):
+    """TF32 rounding as the card's cvt.rna.tf32.f32 does it: round to
+    nearest (ties away from zero) at the low 13 bits of an f32."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tensor_core_residuals(AQ, BQ, Ys, theta, split):
+    """K10's arithmetic on the card, emulated: the products of each k
+    step of 8 on the tensor cores (exact products of TF32 values, summed
+    and rounded once into the f32 accumulator), with the 3xTF32 split (a
+    = hi + lo, lo hi' + hi lo' + hi hi' per step) or plain TF32 (hi hi'
+    alone); R = u - theta v in f32, the squares summed in f64. AQ, BQ
+    (D, B, C, k), Ys (B, k, k), theta (B, k) as numpy f32."""
+    D, Bq, C, k = AQ.shape
+    kp = -(-k // 8) * 8
+    pad = ((0, 0), (0, kp - k))
+
+    def parts(x):
+        hi = _tf32(x)
+        return hi.astype(np.float64), _tf32(x - hi).astype(np.float64)
+
+    res = np.empty((Bq, k), np.float32)
+    for b in range(Bq):
+        yh, yl = parts(np.pad(Ys[b], ((0, kp - k), (0, 0))))
+        acc = []
+        for Q in (AQ, BQ):
+            ah, al = parts(np.pad(Q[:, b].reshape(D * C, k), pad))
+            u = np.zeros((D * C, k), np.float32)
+            for s in range(0, kp, 8):
+                terms = ([(al, yh), (ah, yl)] if split else []) + [(ah, yh)]
+                for a, y in terms:
+                    u = (u + a[:, s:s + 8] @ y[s:s + 8]).astype(np.float32)
+            acc.append(u)
+        u, v = acc
+        R = u - theta[b][None] * v
+        nr = (R.astype(np.float64) ** 2).sum(0)
+        nu = (u.astype(np.float64) ** 2).sum(0)
+        res[b] = np.sqrt(nr) / (np.sqrt(nu) + 1e-30)
+    return res
+
+
+@pytest.mark.parametrize("route,noise", [("3xtf32", 0.0), ("3xtf32", 1e-6),
+                                         ("3xtf32", 1e-4), ("tf32", 0.0)])
+def test_tf32_split_products_hold_the_f32_floor(route, noise):
+    """K10 forms its products on the tensor cores with the 3xTF32 split.
+    On the exact-Ritz-pair inputs of the card test
+    (test_torch_cuda.py::test_ritz_residual_near_the_f32_floor: AQ = BQ
+    Ys diag(theta) Ys^-1 + noise N, so the residuals sit at the f32
+    floor or at the noise), that arithmetic, emulated here, holds the
+    residuals to the twin's within the card test's tolerance, 1e-6 +
+    1e-3 res, and below max(30 noise, 1e-5). Plain TF32 misses it."""
+    rng = np.random.default_rng(12)
+    D, Bq, k = 3000, 2, 22
+    BQ = rng.standard_normal((D, Bq, 3, k)).astype(np.float32)
+    Ys = (np.eye(k) + 0.1 * rng.standard_normal((Bq, k, k))).astype(
+        np.float32)
+    theta = np.sort(1.0 + rng.random((Bq, k)), axis=1).astype(np.float32)
+    M = (Ys.astype(np.float64) @ (theta[:, :, None] * np.linalg.inv(Ys)))
+    AQ = (np.einsum("dbck,bkl->dbcl", BQ.astype(np.float64), M)
+          + noise * rng.standard_normal((D, Bq, 3, k))).astype(np.float32)
+    cuts = np.full(Bq, 1.5, np.float32)
+    ref, _ = tk.ritz_residual_plain(_t(AQ), _t(BQ), _t(Ys), _t(theta),
+                                    _t(cuts))
+    ref = ref.numpy()
+    got = _tensor_core_residuals(AQ, BQ, Ys, theta, route == "3xtf32")
+    held = (np.all(np.abs(got - ref) <= 1e-6 + 1e-3 * ref)
+            and got.max() < max(30 * noise, 1e-5))
+    assert held == (route == "3xtf32")
