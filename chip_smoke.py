@@ -7,7 +7,7 @@ In order:
 
 1. needs CUDA (raises otherwise) and prints the card's name and power
    limit as nvidia-smi reports them;
-2. builds the CUDA kernels (K1-K3, K5, K7-K10) from
+2. builds the CUDA kernels (K1-K3, K5, K7-K11) from
    ``pl_fem_tpu_torch/ops/csrc`` with nvcc, one compiler process per
    source, and prints the build seconds (Triton builds K4 and K6 at
    their first launches in step 3);
@@ -34,7 +34,13 @@ In order:
    the scalar pencil's blocks and at C = 3 on the (E, 18, 18) vectorial
    blocks, there also against K1; K6 (permittivity: eps_re equal,
    eps_im to 1e-6); K7 (scalar blocks); K8 (spectrum bound, C = 1 and
-   3, also >= its f64 value less 1e-4 relative); K4 on a (D, 1, 1, k)
+   3, also >= its f64 value less 1e-4 relative); K11 (the scalar
+   pencil's set-up in one launch: eps_re equal to its twin's at every
+   point, A and B to 1e-5 of their scales, the bound to 1e-5 relative
+   and >= its f64 value less 1e-4, one launch, bitwise repeatable), timed
+   beside K6 + K7 + B's diagonal + K8 at C = 1 back to back, the
+   scalar path's set-up before it, whose kernels stay as its
+   yardstick; K4 on a (D, 1, 1, k)
    block; K2 and K3 at L = k. K5 is the whole stacked apply (mask,
    element product, accumulate, park) in one launch on K1's plan: it
    must take one launch and repeat bit for bit, it is timed beside a
@@ -74,7 +80,7 @@ In order:
    K4 step and per Rayleigh-Ritz pass), K2 only on the mass diagonal,
    the batched K6 and the sweep's K8 exactly once per ``solve_sweep``
    call (the bootstrap's coarse sweep and the fine one) and neither
-   the single-design K6 nor K8 on a stack, K9 exactly once per
+   the single-design K6, K8 on a stack nor K11, K9 exactly once per
    bootstrapped sweep, K10 once per Rayleigh-Ritz pass, and no layout
    conversion inside ``kernels.cheb_sweep_rr_impl``; K1 and K4 are
    printed beside their counts before K9 and K10 (the same passes:
@@ -110,18 +116,22 @@ In order:
 7. solves the scalar Helmholtz modes of the config-1 design (1.55 um)
    on the production mesh with ``ScalarHelmholtzSolver`` (10 modes, fast
    preset), device backend then hybrid (host ARPACK) backend; the two
-   n_eff lists must agree to 5e-5, the kernels K2-K8 must launch in the
-   device solve (K5 once per A apply: per K4 step and per Rayleigh-Ritz
-   pass; K2 only on the mass diagonal; K10 once per pass), and the
-   single-core fiber's LP01
+   n_eff lists must agree to 5e-5, the kernels K2-K5, K10 and K11 must
+   launch in the device solve (K5 once per A apply: per K4 step and per
+   Rayleigh-Ritz pass; K2 only on the mass diagonal; K10 once per pass;
+   K11 once per solve, and the standalone K6, K7 and K8 never); the
+   assemble phase's seconds are split into upload, plans and kernels on
+   fresh device grids; and the single-core fiber's LP01
    must match the exact LP dispersion (ops/analytic.lp_modes) within
-   1e-4 relative;
+   1e-4 relative, with K11 once and K6, K7, K8 never in its solve;
 8. runs the scalar dataset engine through the CLI (``--scalar
    --cmt-slices 5`` at configs/r5_dataset.yaml) on 4 of the config's 220
    samples (the one cut): every validated sample must be a
    ``scalar_cascade`` record, at least one must succeed with finite
-   losses, K2-K8 must launch (K5 once per A apply, K2 only at L = 1),
-   and a second run must solve nothing.
+   losses, K2-K5, K10 and K11 must launch (K5 once per A apply, K2 only
+   at L = 1, K11 once per solve and K6, K7, K8 never), and a second run
+   must solve nothing; then K5-K8 and K11 against their twins on the
+   dataset's mesh at the run's largest k.
 
 The config-1 and r5 workloads are defined in
 ``pl_fem_tpu_torch/workloads.py``. It prints the per-kernel JSON line,
@@ -183,12 +193,13 @@ def _event_ms(fn, reps: int = 10) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def _device_ms(fn, kernels: int, reps: int = 20):
+def _device_ms(fn, kernels: int, reps: int = 20, name: str = ""):
     """Device milliseconds per call of ``fn``, which launches ``kernels``
-    kernels: the CUDA intervals that torch.profiler records over ``reps``
-    calls (the event time of a short kernel counts the host's launch
-    rate as well). None unless the profiler recorded every launch: in a
-    long process it can come back with part of them."""
+    kernels (those whose name holds ``name``, where given): the CUDA
+    intervals that torch.profiler records over ``reps`` calls (the event
+    time of a short kernel counts the host's launch rate as well). None
+    unless the profiler recorded every launch: in a long process it can
+    come back with part of them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -200,7 +211,8 @@ def _device_ms(fn, kernels: int, reps: int = 20):
             fn()
         torch.cuda.synchronize()
     spans = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and name in e.name]
     if len(spans) != kernels * reps:
         return None
     return sum(spans) / 1e3 / reps
@@ -330,18 +342,21 @@ def _watch_sweep():
     (``_bootstrap_sweep`` calls that returned a seed), the layout
     conversions of ``kernels`` (``_fused_from_stacked``,
     ``_stacked_from_fused``) in all and inside a vectorial
-    Rayleigh-Ritz, record the lane count of
+    Rayleigh-Ritz, the scalar solves on the device
+    (``ScalarHelmholtzSolver._solve_device`` calls), record the lane
+    count of
     every K2 launch made through ``kernels``, and sum the seconds of
     every named phase of every PhaseTimer (``phase_s``: the sweeps'
     ``assemble`` and ``bounds`` among them): the port's own functions,
     wrapped (two sweep threads may call them)."""
     from pl_fem_tpu_torch.ops import kernels as tkn
+    from pl_fem_tpu_torch.solvers import scalar as tsc
     from pl_fem_tpu_torch.solvers import vectorial as tvec
     from pl_fem_tpu_torch.utils import profiling
 
     seen = {"rr_passes": 0, "stacked_passes": 0, "sweeps": 0, "boots": 0,
-            "conversions": 0, "rr_conversions": 0, "k2_lanes": set(),
-            "phase_s": {}}
+            "scalar_solves": 0, "conversions": 0, "rr_conversions": 0,
+            "k2_lanes": set(), "phase_s": {}}
     lock = threading.Lock()
     in_rr = threading.local()
     rr, srr = tkn.cheb_sweep_rr_impl, tkn.cheb_rr_pass_impl
@@ -350,6 +365,7 @@ def _watch_sweep():
     solver = tvec.TrueVectorialMaxwellSolver
     sweep = solver.__dict__["solve_sweep"]
     boot = solver.__dict__["_bootstrap_sweep"]
+    ssolve = tsc.ScalarHelmholtzSolver._solve_device
     phase = profiling.PhaseTimer.phase
 
     @contextlib.contextmanager
@@ -406,6 +422,7 @@ def _watch_sweep():
     tkn.accumulate = acc_seen
     solver.solve_sweep = classmethod(counted(sweep.__func__, "sweeps"))
     solver._bootstrap_sweep = classmethod(boot_seen)
+    tsc.ScalarHelmholtzSolver._solve_device = counted(ssolve, "scalar_solves")
     profiling.PhaseTimer.phase = timed_phase
     try:
         yield seen
@@ -415,14 +432,16 @@ def _watch_sweep():
         tkn.accumulate = acc
         solver.solve_sweep = sweep
         solver._bootstrap_sweep = boot
+        tsc.ScalarHelmholtzSolver._solve_device = ssolve
         profiling.PhaseTimer.phase = phase
 
 
 def _check_sweep_launches(what, launches, seen):
     """The vectorial sweep's assemble and bounds: the batched K6 and K8
     from the quadrature data launch exactly once per ``solve_sweep``
-    call, and the single-design K6 and K8 on an assembled
-    stack not at all; prints the summed assemble and bounds seconds."""
+    call, and the single-design K6, K8 on an assembled stack and the
+    scalar path's K11 not at all; prints the summed assemble and bounds
+    seconds."""
     n6, n8 = (launches["inv_eps_at_quadrature"],
               launches["pencil_bounds_vector3"])
     ph = seen["phase_s"]
@@ -436,9 +455,29 @@ def _check_sweep_launches(what, launches, seen):
     if not seen["sweeps"] or n6 != seen["sweeps"] or n8 != seen["sweeps"]:
         raise AssertionError(f"{what}: the batched K6 and the sweep's K8 "
                              f"did not launch once per sweep")
-    if launches["eps_at_quadrature"] or launches["pencil_bounds"]:
+    if launches["eps_at_quadrature"] or launches["pencil_bounds"] \
+            or launches["scalar_pencil"]:
         raise AssertionError(f"{what}: the vectorial path launched the "
-                             f"single-design K6 or K8 on a stack")
+                             f"single-design K6, K8 on a stack or K11")
+
+
+def _check_scalar_launches(what, launches, seen):
+    """The scalar pencil's set-up: K11 launches exactly once per scalar
+    solve on the device, and the standalone K6 (single design), K7 and
+    K8 (on assembled blocks) it replaces not at all."""
+    n11 = launches["scalar_pencil"]
+    old = {n: launches[n] for n in ("eps_at_quadrature", "scalar_blocks",
+                                    "pencil_bounds")}
+    print(f"{what}: {seen['scalar_solves']} scalar solves on the device; "
+          f"K11 launches {n11}; standalone K6 / K7 / K8 launches "
+          f"{old['eps_at_quadrature']} / {old['scalar_blocks']} / "
+          f"{old['pencil_bounds']}", flush=True)
+    if not seen["scalar_solves"] or n11 != seen["scalar_solves"]:
+        raise AssertionError(f"{what}: K11 did not launch once per scalar "
+                             f"solve")
+    if any(old.values()):
+        raise AssertionError(f"{what}: the scalar path launched the "
+                             f"standalone K6, K7 or K8")
 
 
 def _check_apply_launches(what, launches, seen):
@@ -1115,9 +1154,121 @@ def _cheb_checks(W, T1, T0, c, h, gen, tag):
     return row
 
 
+def _k11_work(E, Q, n_cores):
+    """(bytes, f32 operations) of K11 on E elements, Q points and n_cores
+    cores, from the function's own inputs and outputs: gradients,
+    weights, points and flags read once per element, the shape table,
+    Linv, the cores and the two permittivities once; A, B, the diagonal
+    terms and the bound written once. Operations: 6 per (point, core)
+    for the core test; per entry 12 per point (K, Me, M) and 3 for A; per
+    element |detJ| (8), A / |detJ| (36), T and W (36 x 12 each), |W| and
+    the row sums (72)."""
+    nbytes = (E * (4 * 15 * Q + 1) + 4 * (6 * Q + 36 + 3 * n_cores + 2)
+              + E * 4 * 78 + 4)
+    flops = E * (6 * n_cores * Q + 36 * (12 * Q + 3) + 8 + 36 + 864 + 72)
+    return nbytes, flops
+
+
+def _k11_checks(ga, ea, k2, Linv, tr, A7, B7):
+    """K11 (``scalar_pencil``) against its twin on the grid ``ga`` for the
+    design ``ea``: eps_re equal at every point, A and B within
+    KERNEL_RTOL of their own scales, the diagonal terms B's own, the
+    bound within KERNEL_RTOL relative and no further under its f64 twin
+    than BOUND_F64_SLACK; one launch a call and bitwise repeatable. Timed
+    (CUDA events, the profiler's device time, host time per call) beside
+    its twin, its bound and its yardstick: K6, K7, B's diagonal and K8 at
+    C = 1 back to back, as the scalar path ran them before K11. Prints
+    whether A equals K7's ``A7`` and the bound K8's on K11's own blocks
+    bit for bit. Returns the row."""
+    import torch
+
+    from pl_fem_tpu_torch.ops import cuda_kernels as ck
+    from pl_fem_tpu_torch.ops import triton_kernels as tk
+
+    E, Q = ga.qp_w.shape
+    n_cores = ea.positions.shape[0]
+    args = (ga.grad_phys, ga.qp_w, ga.qp_xy, ga.shape_vals, ea, k2,
+            ga.elem_valid, Linv, tr)
+    n0 = ck.scalar_pencil.launches
+    A, B, diag, bound, eps = ck.scalar_pencil(*args, return_eps=True)
+    if ck.scalar_pencil.launches != n0 + 1:
+        raise AssertionError("K11 took more than one launch")
+    rA, rB, rdiag, rbound, reps = ck.scalar_pencil_plain(*args,
+                                                         return_eps=True)
+    if not torch.equal(eps, reps):
+        raise AssertionError(f"K11: eps_re differs from the twin at "
+                             f"{int((eps != reps).sum())} points")
+    errs = {}
+    for nm, y, ref in (("A", A, rA), ("B", B, rB)):
+        err = float((y - ref).abs().max())
+        scale = float(ref.abs().max())
+        print(f"  K11 {nm} blocks: max_abs_err={err:.3e} (max|{nm}|="
+              f"{scale:.3e}, limit {KERNEL_RTOL:g} of it)", flush=True)
+        if not err <= KERNEL_RTOL * scale:
+            raise AssertionError(f"K11: max|{nm} - twin| = {err:.3e} > "
+                                 f"{KERNEL_RTOL:g} * {scale:.3e}")
+        errs[f"{nm.lower()}_max_abs_err"] = err
+    if not torch.equal(diag, torch.diagonal(B, dim1=1, dim2=2)):
+        raise AssertionError("K11: the diagonal terms are not B's")
+    rel = abs(float(bound) - float(rbound)) / float(rbound)
+    b64 = float(ck.pencil_bounds_plain(rA.double(), rB.double(),
+                                       ga.elem_valid, Linv.double(), tr, 1))
+    print(f"  K11 eps_re equal to the twin's at all {E * Q} points; bound "
+          f"{float(bound):.6e}, relative difference to the twin {rel:.3e} "
+          f"(limit {KERNEL_RTOL:g}), f64 {b64:.6e} (may sit "
+          f"{BOUND_F64_SLACK:g} relative under it)", flush=True)
+    if not rel <= KERNEL_RTOL:
+        raise AssertionError(f"K11: the bound is {rel:.3e} relative off "
+                             f"its twin's")
+    if not float(bound) >= b64 * (1.0 - BOUND_F64_SLACK):
+        raise AssertionError(f"K11: the bound {float(bound)!r} is below its "
+                             f"f64 value {b64!r} by more than "
+                             f"{BOUND_F64_SLACK:g} relative")
+    again = ck.scalar_pencil(*args)
+    if not all(torch.equal(x, y) for x, y in zip((A, B, diag, bound),
+                                                  again)):
+        raise AssertionError("K11 is not bitwise repeatable")
+    same_k8 = torch.equal(bound, ck.pencil_bounds(A, B, ga.elem_valid, Linv,
+                                                  tr, 1))
+    print(f"  K11 A bit for bit K7's: {torch.equal(A, A7)}, B: "
+          f"{torch.equal(B, B7)}; bound bit for bit K8's on K11's blocks: "
+          f"{same_k8}", flush=True)
+    del rA, rB, rdiag, reps
+    row = _compare(
+        "K11 scalar_pencil (permittivity, A and B, diagonal, bound)",
+        lambda: ck.scalar_pencil(*args)[0],
+        lambda: ck.scalar_pencil_plain(*args)[0],
+        _k11_work(E, Q, n_cores))
+
+    def chain():
+        # the scalar path's set-up before K11: K6 (r^2, then the Triton
+        # kernel), K7, B's diagonal, K8's two launches
+        re, _ = tk.eps_at_quadrature(ga.qp_xy, ea)
+        A_, B_ = ck.scalar_blocks(ga.grad_phys, ga.qp_w, ga.shape_vals, re,
+                                  k2)
+        torch.diagonal(B_, dim1=1, dim2=2).contiguous()
+        return ck.pencil_bounds(A_, B_, ga.elem_valid, Linv, tr, 1)
+
+    row.update(errs, max_rel_err_bound=rel, f64_bound=b64,
+               a_equals_k7=torch.equal(A, A7), bound_equals_k8=same_k8,
+               device_ms=_device_ms(lambda: ck.scalar_pencil(*args), 1,
+                                    name="scalar_pencil"),
+               host_ms=_host_ms(lambda: ck.scalar_pencil(*args)),
+               yardstick_ms=_event_ms(chain),
+               yardstick_device_ms=_device_ms(chain, 6),
+               yardstick_host_ms=_host_ms(chain, reps=50))
+    print(f"  K11 device time (profiler) {row['device_ms']} ms, host time "
+          f"per call {row['host_ms']:.4f} ms; K6 + K7 + diagonal + K8 back "
+          f"to back: {row['yardstick_ms']:.3f} ms (CUDA events), device "
+          f"{row['yardstick_device_ms']} ms, host "
+          f"{row['yardstick_host_ms']:.4f} ms", flush=True)
+    return row
+
+
 def _scalar_kernel_checks(dg, geom, k, dev):
-    """K5-K8 against their twins on ``dg`` with k columns, and the reused
-    K2, K3, K4 at the scalar solver's shapes; returns {name: row}."""
+    """K5-K8 and K11 against their twins on ``dg`` with k columns, and
+    the reused K2, K3, K4 at the scalar solver's shapes; returns {name:
+    row}."""
     import numpy as np
     import torch
 
@@ -1226,6 +1377,7 @@ def _scalar_kernel_checks(dg, geom, k, dev):
             res["pencil_bounds"] = row
         else:
             res["pencil_bounds"]["c3"] = row
+    res["scalar_pencil"] = _k11_checks(ga, ea, k2, Linv, tr, A, Bm)
 
     # K5, the whole stacked apply, at C = 1 (the scalar pencil) and C = 3
     # (the vectorial blocks), with one cuSPARSE SpMM of the assembled
@@ -1341,6 +1493,37 @@ def _scalar_kernel_checks(dg, geom, k, dev):
     return res
 
 
+def _scalar_assemble_split(dg, geom, dev, runs: int = 3):
+    """How the scalar solve's ``assemble`` phase (``build_scalar_pencil``)
+    splits, host seconds to a synchronise, ``runs`` times on a fresh
+    device grid each: the grid and permittivity upload
+    (``grid_to_device``, ``eps_arrays``), the K1 / K3 plans
+    (``gather_scatter``, built once per device grid), and the kernels
+    (``assemble_scalar_system``: K11 and K2 at L = 1, the plans cached)."""
+    import torch
+
+    from pl_fem_tpu_torch.ops import assembly as ta
+
+    out = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ga = ta.grid_to_device(dg, dev)
+        ea = ta.eps_arrays(geom.eps_params(), dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ta.gather_scatter(ga)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        ta.assemble_scalar_system(ga, ea, geom.k0)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        out.append({"upload_s": t1 - t0, "plans_s": t2 - t1,
+                    "kernels_s": t3 - t2})
+        del ga, ea
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1404,16 +1587,19 @@ def main() -> int:
                 "inv_eps_at_quadrature": tk.inv_eps_at_quadrature,
                 "pencil_bounds_vector3": ck.pencil_bounds_vector3,
                 "seed_prolong": ck.seed_prolong,
-                "ritz_residual": ck.ritz_residual}
+                "ritz_residual": ck.ritz_residual,
+                "scalar_pencil": ck.scalar_pencil}
     # the vectorial paths run K1-K4, the batched K6, K8 from the
-    # quadrature data, K9 and K10; the scalar paths K2-K8 (the
-    # single-design K6, K8 on the assembled blocks) and K10
+    # quadrature data, K9 and K10; the scalar paths K2-K5, K10 and K11.
+    # The single-design K6, K7 and K8 on assembled blocks are on no path:
+    # they are K11's yardstick
     sweep_only = ("inv_eps_at_quadrature", "pencil_bounds_vector3",
                   "seed_prolong")
+    standalone = ("eps_at_quadrature", "scalar_blocks", "pencil_bounds")
     on_vector = ["apply_vector3", "accumulate", "mass_apply", "cheb_step",
                  "ritz_residual", *sweep_only]
-    on_scalar = [n for n in wrappers
-                 if n != "apply_vector3" and n not in sweep_only]
+    on_scalar = ["accumulate", "mass_apply", "cheb_step", "apply_stacked",
+                 "ritz_residual", "scalar_pencil"]
 
     def reset_counts():
         for fn in wrappers.values():
@@ -1647,6 +1833,8 @@ def main() -> int:
         raise AssertionError("the scalar solve launched K1")
     _check_apply_launches("the scalar solve", launches_scalar, seen)
     _check_seed_rr_launches("the scalar solve", launches_scalar, seen)
+    _check_scalar_launches("the scalar solve", launches_scalar, seen)
+    split = _scalar_assemble_split(dg, sgeom, dev)
     hcfg = dataclasses.replace(cfg, solver=dataclasses.replace(
         cfg.solver, backend="hybrid"))
     reset_counts()
@@ -1679,8 +1867,13 @@ def main() -> int:
                 and np.all(np.isfinite(m["field_vector"]))
                 and m["field_vector"].shape == (grid.n_dofs,)):
             raise AssertionError("bad scalar mode")
-    fsm = ScalarHelmholtzSolver(fiber, fcfg).solve(
-        fdg, 8)
+    reset_counts()
+    with _watch_sweep() as fsseen:
+        fsm = ScalarHelmholtzSolver(fiber, fcfg).solve(fdg, 8)
+    launches_fiber = read_counts()
+    _check_apply_launches("the scalar fiber", launches_fiber, fsseen)
+    _check_seed_rr_launches("the scalar fiber", launches_fiber, fsseen)
+    _check_scalar_launches("the scalar fiber", launches_fiber, fsseen)
     lp01 = max(ne for _, _, ne in lp_modes(fiber.V_number, fiber.n_core,
                                             fiber.n_clad))
     if not fsm:
@@ -1735,6 +1928,7 @@ def main() -> int:
                                  f"scalar dataset engine")
     _check_apply_launches("the scalar dataset run", launches_sds, seen)
     _check_seed_rr_launches("the scalar dataset run", launches_sds, seen)
+    _check_scalar_launches("the scalar dataset run", launches_sds, seen)
     sgood = [r for r in srecords if r.success and _finite(
         r.IL_phys_mux_dB, r.MDL_phys_mux_dB, r.crosstalk_mux_dB,
         r.IL_phys_demux_dB, r.n_eff_max)]
@@ -1753,7 +1947,7 @@ def main() -> int:
     if again != lines or any(relaunched.values()):
         raise AssertionError("the resumed scalar run re-simulated samples")
 
-    # K5-K8 at the scalar engine's largest k on the dataset mesh
+    # K5-K8 and K11 at the scalar engine's largest k on the dataset mesh
     k_sds = max(max(math.ceil(2.8 * r.n_cores), r.n_modes_found)
                 for r in ssolved) + sgen.config.solver.extra_vectors
     results_sds = _scalar_kernel_checks(ds_dg, sgeom, k_sds, dev)
@@ -1791,6 +1985,11 @@ def main() -> int:
         "ritz_residual": ("cuda", src + "csrc/ritz_residual.cu",
                           "pl_fem_tpu/ops/kernels.py:759, "
                           "pl_fem_tpu/ops/kernels.py:962"),
+        "scalar_pencil": ("cuda", src + "csrc/scalar_pencil.cu",
+                          "pl_fem_tpu/ops/assembly.py:126, "
+                          "pl_fem_tpu/ops/assembly.py:151, "
+                          "pl_fem_tpu/ops/assembly.py:327, "
+                          "pl_fem_tpu/ops/kernels.py:1120"),
     }
     kernels = []
     for name, (route, source, replaces) in meta.items():
@@ -1821,10 +2020,12 @@ def main() -> int:
                 row["scalar_dataset_shape"] = {"k": k_sds,
                                                **results_sds[name]}
         else:
-            # K5-K8: the scalar solve's count, the config-1 mesh at
-            # k = 22; the scalar dataset's mesh and k beside them
+            # K5-K8 and K11: the scalar solve's count, the config-1 mesh
+            # at k = 22; the scalar dataset's mesh and k beside them
             row = {"launches": launches_scalar[name], **results_sc[name],
                    "dataset_shape": {"k": k_sds, **results_sds[name]}}
+        if name in standalone:
+            row["on_path"] = "none: K11's yardstick on the scalar path"
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, **row,
                         "launches_by_path": by_path})
@@ -1836,6 +2037,8 @@ def main() -> int:
           f"{dataset_phase_s.get('assemble', 0.0):.4f} / "
           f"{dataset_phase_s.get('bounds', 0.0):.4f} (card {card})",
           flush=True)
+    print(f"scalar assemble split (config-1 mesh, host clock to a "
+          f"synchronise; card {card}): {json.dumps(split)}", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

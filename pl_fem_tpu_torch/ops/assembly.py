@@ -7,8 +7,11 @@ target device (``grid_to_device`` and ``grid_from_numpy`` put them
 there) and return tensors on it. The permittivity at the quadrature
 points is K6 (``triton_kernels.eps_at_quadrature``; for a vectorial
 sweep ``assemble_vector3_sweep`` takes 1/eps of all its designs from
-one launch of ``triton_kernels.inv_eps_at_quadrature``), the scalar
-element blocks K7 (``cuda_kernels.scalar_blocks``).
+one launch of ``triton_kernels.inv_eps_at_quadrature``). The scalar
+pencil's permittivity, element blocks and spectrum bound are one K11
+launch (``cuda_kernels.scalar_pencil``); K7
+(``cuda_kernels.scalar_blocks``) builds the same blocks from a given
+permittivity.
 
 Matrix convention: blocks[e, i, j] couples test function i with trial
 function j of element e; global A[I, J] = sum_e blocks[e, i, j] over the
@@ -519,22 +522,23 @@ def assemble_vector3_sweep(ga: GridArrays, gs, eas: Sequence[EpsArrays]):
 
 
 def assemble_scalar_system(ga: GridArrays, ea: EpsArrays, k0):
-    """(A, B, diag_B) of the scalar Helmholtz pencil
+    """(A, B, diag_B, bound) of the scalar Helmholtz pencil
     (K - k0^2 M_eps) psi = lambda M psi: the element blocks A and B
-    (E, 6, 6) through K7, and the assembled mass diagonal (D,) through
-    the K2 accumulate at lane count 1, 1.0 on padded DOF rows."""
-    from .cuda_kernels import scalar_blocks
-    from .kernels import _accumulate_fused
+    (E, 6, 6) and the spectrum bound of (A, B) (0-d, ``kernels``'s
+    ``pencil_bounds_elem`` bound_A) from one K11 launch, which also
+    decides the permittivity at the quadrature points; the assembled
+    mass diagonal (D,) through the K2 accumulate at lane count 1 on K11's
+    diagonal terms, 1.0 on padded DOF rows."""
+    from .cuda_kernels import scalar_pencil
+    from .kernels import _TRACE_REF, _accumulate_fused, _linv_ref_on
 
-    eps_re, _ = eps_at_quadrature(ga, ea)
     k0 = np.float32(k0)
-    A, B = scalar_blocks(ga.grad_phys, ga.qp_w, ga.shape_vals, eps_re,
-                         float(k0 * k0))
-    diag_e = torch.diagonal(B, dim1=1, dim2=2)
-    diag = _accumulate_fused(diag_e[:, :, None].contiguous(),
-                             gather_scatter(ga))[:, 0]
+    A, B, diag_e, bound = scalar_pencil(
+        ga.grad_phys, ga.qp_w, ga.qp_xy, ga.shape_vals, ea, float(k0 * k0),
+        ga.elem_valid, _linv_ref_on(str(ga.qp_w.device)), _TRACE_REF)
+    diag = _accumulate_fused(diag_e[:, :, None], gather_scatter(ga))[:, 0]
     diag = torch.where(ga.dof_valid > 0, diag, torch.ones_like(diag))
-    return A, B, diag
+    return A, B, diag, bound
 
 
 def stack_blocks(blocks: Dict, n_components: int) -> torch.Tensor:

@@ -6,8 +6,11 @@ semi-iteration), K5 the stacked-block apply with its mask and park
 (element product and accumulate in one kernel), K7 the scalar pencil's
 element blocks, K8 the pencil's spectrum bound (on assembled blocks, and
 for the vectorial sweep from the quadrature data of all its designs), K9
-the vectorial sweep's bootstrap seed and K10 the Rayleigh-Ritz residual
-norms with the pass gate. K8's sweep entry, K9 and K10 take CUDA tensors
+the vectorial sweep's bootstrap seed, K10 the Rayleigh-Ritz residual
+norms with the pass gate and K11 the scalar pencil's whole set-up (the
+permittivity, K7's blocks and K8's bound at C = 1 in one launch; the
+scalar path runs it in place of K6, K7 and K8, which stay as its
+yardstick). K8's sweep entry, K9 and K10 take CUDA tensors
 only: their twins live in ``kernels`` beside the functions that compose
 them, which pick the twin on the CPU.
 
@@ -48,6 +51,7 @@ import numpy as np
 import torch
 
 from .assembly import MASS_ROWS  # rows per block, kRows of mass_apply.cu
+from .triton_kernels import eps_at_quadrature_plain
 
 _CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -74,9 +78,12 @@ _SIGNATURES = {
     "pl_seed_prolong": [_P] * 6 + [_F] + [_I] * 5 + [_P] * 4,
     "pl_ritz_residual_blocks": [_I] * 4,
     "pl_ritz_residual": [_P] * 5 + [_I] * 5 + [_P] * 4,
+    "pl_scalar_pencil": [_P] * 8 + [_F, _P, _P, _F, _F] + [_I] * 3
+                        + [_P] * 6,
 }
 _LIB: Optional[ctypes.CDLL] = None
 _LOCK = threading.Lock()
+_TINY_F32 = float(torch.finfo(torch.float32).tiny) * 1e3   # K8's |detJ| floor
 
 
 def _nvcc() -> str:
@@ -167,6 +174,9 @@ def _check(rc: int, what: str):
 
 
 def _require(t: torch.Tensor, name: str, dtype, device, shape=None):
+    if (t.dtype == dtype and t.device == device and t.is_contiguous()
+            and (shape is None or t.shape == shape)):
+        return          # the common case, in as few calls as it takes
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -189,7 +199,10 @@ def _require_lanes(t: torch.Tensor, name: str, L: int):
 
 
 def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of PyTorch's current stream on ``device``, through
+    the accessor torch's own generated launchers use (a Stream object
+    built per launch cost more host time than a small kernel takes)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 # ---------------------------------------------------------------------------
@@ -689,7 +702,7 @@ def pencil_bounds(Abig, Bblk, elem_valid, Linv, trace_ref: float, C: int):
     rc = L.pl_pencil_bounds(
         Abig.data_ptr(), Bblk.data_ptr(), elem_valid.data_ptr(),
         Linv.data_ptr(), float(trace_ref),
-        float(torch.finfo(f32).tiny) * 1e3, E, C, partial.data_ptr(),
+        _TINY_F32, E, C, partial.data_ptr(),
         out.data_ptr(), _stream(dev))
     _check(rc, "pencil_bounds")
     _count(pencil_bounds)
@@ -737,7 +750,7 @@ def pencil_bounds_vector3(gp, w, N, inv_eps, betas, alpha: float,
         gp.data_ptr(), w.data_ptr(), N.data_ptr(), inv_eps.data_ptr(),
         betas.data_ptr(), float(alpha), elem_valid.data_ptr(),
         Linv.data_ptr(), float(trace_ref),
-        float(torch.finfo(f32).tiny) * 1e3, E, Q, B, partial.data_ptr(),
+        _TINY_F32, E, Q, B, partial.data_ptr(),
         out.data_ptr(), _stream(dev))
     _check(rc, "pencil_bounds_vector3")
     _count(pencil_bounds_vector3)
@@ -862,3 +875,85 @@ def ritz_residual(AQ, BQ, Ys, theta, cuts, n_wanted: int = 0):
 
 
 ritz_residual.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K11: the scalar pencil's set-up (permittivity, blocks, bound) in one launch
+# ---------------------------------------------------------------------------
+
+def scalar_pencil_plain(grad_phys, qp_w, qp_xy, N, eps, k2, elem_valid,
+                        Linv, trace_ref: float, return_eps: bool = False):
+    """Plain twin of K11: K6's twin for eps_re, K7's for the blocks, B's
+    diagonal and K8's at C = 1 for the bound, composed as the scalar
+    path composed the three kernels. Returns (A, B, diag, bound), with
+    eps_re (E, Q) last when ``return_eps``."""
+    eps_re, _ = eps_at_quadrature_plain(qp_xy, eps)
+    A, B = scalar_blocks_plain(grad_phys, qp_w, N, eps_re, k2)
+    diag = torch.diagonal(B, dim1=1, dim2=2).contiguous()
+    bound = pencil_bounds_plain(A, B, elem_valid, Linv, trace_ref, 1)
+    return (A, B, diag, bound) + ((eps_re,) if return_eps else ())
+
+
+def scalar_pencil(grad_phys, qp_w, qp_xy, N, eps, k2: float, elem_valid,
+                  Linv, trace_ref: float, return_eps: bool = False):
+    """K11 (``csrc/scalar_pencil.cu``): the scalar pencil's element
+    blocks A = K - k2 Me and B = M, B's diagonal terms and the spectrum
+    bound of (A, B) in one launch, from the quadrature data and the
+    permittivity model (K6's core test on eps_re; the PML's imaginary
+    part is not formed).
+
+    grad_phys (E, Q, 6, 2), qp_w (E, Q), qp_xy (E, Q, 2) and N (Q, 6),
+    all f32; ``eps`` an EpsArrays of f32 tensors on the same device (the
+    kernel reads positions, core_radii, eps_core and eps_clad); ``k2``
+    is k0^2; elem_valid (E,) bool; Linv (6, 6) f32 the inverse Cholesky
+    factor of the reference mass, ``trace_ref`` its trace. Returns A, B
+    (E, 6, 6), diag (E, 6) and the bound (0-d), views of one buffer,
+    with eps_re (E, Q) last when ``return_eps`` (the tests'). grad_phys
+    starts on 16 bytes, qp_xy and the core positions on 8; Q <= 8. One
+    call is a 4-byte memset and one kernel.
+    """
+    if qp_w.device.type == "cpu":
+        return scalar_pencil_plain(grad_phys, qp_w, qp_xy, N, eps, k2,
+                                   elem_valid, Linv, trace_ref, return_eps)
+    dev = qp_w.device
+    E, Q = qp_w.shape
+    n = eps.positions.shape[0]
+    f32 = torch.float32
+    for t, name, shape in (
+            (grad_phys, "grad_phys", (E, Q, 6, 2)), (qp_w, "qp_w", (E, Q)),
+            (qp_xy, "qp_xy", (E, Q, 2)), (N, "N", (Q, 6)),
+            (eps.positions, "positions", (n, 2)),
+            (eps.core_radii, "core_radii", (n,)),
+            (eps.eps_core, "eps_core", ()), (eps.eps_clad, "eps_clad", ()),
+            (Linv, "Linv", (6, 6))):
+        _require(t, name, f32, dev, shape)
+    _require(elem_valid, "elem_valid", torch.bool, dev, (E,))
+    if grad_phys.data_ptr() % 16 or qp_xy.data_ptr() % 8 \
+            or eps.positions.data_ptr() % 8:
+        raise ValueError("grad_phys must start on 16 bytes, qp_xy and "
+                         "positions on 8 (the kernel loads them as float4 "
+                         "and float2)")
+    # one allocation for the four outputs: the wrapper's host time is
+    # most of a call at the scalar path's sizes
+    buf = torch.empty((78 * E + 1,), dtype=f32, device=dev)
+    p = buf.data_ptr()
+    eps_re = (torch.empty((E, Q), dtype=f32, device=dev) if return_eps
+              else None)
+    rc = lib().pl_scalar_pencil(
+        grad_phys.data_ptr(), qp_w.data_ptr(), qp_xy.data_ptr(),
+        N.data_ptr(), eps.positions.data_ptr(), eps.core_radii.data_ptr(),
+        eps.eps_core.data_ptr(), eps.eps_clad.data_ptr(), float(k2),
+        elem_valid.data_ptr(), Linv.data_ptr(), float(trace_ref), _TINY_F32,
+        E, Q, n, p, p + 144 * E, p + 288 * E,
+        None if eps_re is None else eps_re.data_ptr(), p + 312 * E,
+        _stream(dev))
+    _check(rc, "scalar_pencil")
+    _count(scalar_pencil)
+    out = (buf.as_strided((E, 6, 6), (36, 6, 1), 0),
+           buf.as_strided((E, 6, 6), (36, 6, 1), 36 * E),
+           buf.as_strided((E, 6), (6, 1), 72 * E),
+           buf.as_strided((), (), 78 * E))
+    return out + ((eps_re,) if return_eps else ())
+
+
+scalar_pencil.launches = 0

@@ -30,10 +30,11 @@ the component-major block (C D, k): K5 (``apply_stacked``) for the
 whole apply with its mask and park in one launch, K3 once per component
 and degree step for B^{-1}, K4 for the recurrence on the block viewed as
 (C D, 1, 1, k), K10 for its residuals and gate on the block viewed as
-(C D, 1, 1, k). C = 1 is the scalar pencil. The spectrum bound both
-solvers start from is K8: ``pencil_bounds_elem`` on assembled blocks
-(the scalar pencil), ``pencil_bounds_sweep`` from the quadrature factors
-of all designs of a vectorial sweep in one launch.
+(C D, 1, 1, k). C = 1 is the scalar pencil. The spectrum bound the
+scalar pencil starts from comes with its assembly (K11); otherwise it
+is K8: ``pencil_bounds_elem`` on assembled blocks, and
+``pencil_bounds_sweep`` from the quadrature factors of all designs of a
+vectorial sweep in one launch.
 """
 from __future__ import annotations
 
@@ -547,6 +548,7 @@ def _reference_mass_constants():
 
 
 _B_REF, MASS_LO, MASS_HI, _LINV_REF = _reference_mass_constants()
+_TRACE_REF = float(np.trace(_B_REF))
 
 # HRZ mass lumping on the reference element: d_i = B_ref[i,i] * c_H with
 # c_H = area / trace(B_ref) (total mass preserved). The eigenvalues of
@@ -573,8 +575,7 @@ def pencil_bounds_elem(Abig, Bblk, elem_valid, C: int = 1):
     last a 0-d tensor on the device of ``Abig``.
     """
     bound_A = pencil_bounds(Abig, Bblk, elem_valid,
-                            _linv_ref_on(str(Abig.device)),
-                            float(np.trace(_B_REF)), C)
+                            _linv_ref_on(str(Abig.device)), _TRACE_REF, C)
     return np.float32(MASS_LO), np.float32(MASS_HI), bound_A
 
 
@@ -608,7 +609,7 @@ def pencil_bounds_sweep(qs: QFactorSweep, N, elem_valid, betas, alpha):
     bound = (pencil_bounds_vector3_plain if dev.type == "cpu"
              else pencil_bounds_vector3)
     return bound(qs.gp, qs.w, N, qs.inv_eps, b32, float(np.float32(alpha)),
-                 elem_valid, _linv_ref_on(str(dev)), float(np.trace(_B_REF)))
+                 elem_valid, _linv_ref_on(str(dev)), _TRACE_REF)
 
 
 # ---------------------------------------------------------------------------
@@ -712,14 +713,17 @@ def solve_lowest_kernel(Abig, Bblk, gs, mask, diag_B, X0, cut, elem_valid,
                         w, C: int = 1, degree: int = 300, passes: int = 2,
                         tol: float = 1e-7, max_passes: int = 10,
                         park: float = 1.0, binv_degree: int = 8,
-                        n_wanted: int = 0):
+                        n_wanted: int = 0, bound=None):
     """Adaptive filter / Rayleigh-Ritz passes until the wanted residuals
     are below tol.
 
     Abig (E, 6C, 6C) and Bblk (E, 6, 6) are the element blocks of the
     pencil (Bblk enters only the spectrum bound; the mass applies build
-    the same blocks from ``w`` (E, Q) inside K3). X0 (C D, k), a tensor
-    or a numpy array, is moved to the device of ``Abig``. After
+    the same blocks from ``w`` (E, Q) inside K3). ``bound`` is the
+    pencil's spectrum bound (0-d) where its assembly gave it (K11 on the
+    scalar path); without it ``pencil_bounds_elem`` bounds the blocks
+    (K8). X0 (C D, k), a tensor or a numpy array, is moved to the
+    device of ``Abig``. After
     ``passes`` passes the loop reads the pass gate (one scalar) every
     pass and stops once the worst wanted residual is below
     max(tol, 5e-6) or improves by less than 30%.
@@ -727,7 +731,10 @@ def solve_lowest_kernel(Abig, Bblk, gs, mask, diag_B, X0, cut, elem_valid,
     """
     dev = Abig.device
     f32 = torch.float32
-    lo, hi, bound = pencil_bounds_elem(Abig, Bblk, elem_valid, C=C)
+    if bound is None:
+        lo, hi, bound = pencil_bounds_elem(Abig, Bblk, elem_valid, C=C)
+    else:
+        lo, hi = np.float32(MASS_LO), np.float32(MASS_HI)
     dinv_sqrt = (1.0 / torch.sqrt(torch.clamp(diag_B.to(f32), min=1e-30)))
     cut = float(cut)
     bound = torch.clamp(bound, min=max(park * 1.05, cut * 1.5 + 1.0))

@@ -38,7 +38,10 @@ sweep's B = 8, k = 22 and at B = 5 taper slices of the 7-core design on
 a mesh at the r5 settings, k = 42 (the largest k of the r5 dataset
 run). Each is timed with CUDA events and by the profiler's device time,
 beside its twin; K9 also with no column seeded (no F gathered, R1 read
-whole), which shows what its gathers cost.
+whole), which shows what its gathers cost. It also times the scalar
+pencil's set-up on the config-1 design at both meshes: K11, where the
+tree has it, and the K6, K7 and K8 launches it replaced, by CUDA events,
+device time and host time a call.
 
 ``--scalar`` measures the scalar path instead:
 
@@ -81,6 +84,7 @@ FAMILIES = (
     ("K6 eps_at_quadrature (Triton)", ("_eps",)),
     ("K7 scalar_blocks", ("scalar_blocks",)),
     ("K8 pencil_bounds", ("pencil_rows", "pencil_max")),
+    ("K11 scalar_pencil", ("scalar_pencil",)),
     ("torch elementwise", ("elementwise",)),
     ("torch reductions", ("reduce_kernel", "reduction")),
     ("copies and fills", ("memcpy", "memset")),
@@ -482,6 +486,62 @@ def seed_rr_times(reps: int = 20, k_r5: int = 42):
     return out
 
 
+def scalar_setup_times(reps: int = 50):
+    """The scalar pencil's set-up on the config-1 design (1.55 um) at the
+    config-1 mesh and a mesh at the r5 settings: K11 (where the tree has
+    it) and the three launches it replaced (K6, K7 with B's diagonal, K8
+    at C = 1), each as CUDA-event and device milliseconds a call (the
+    device time counts every kernel and memset) and host milliseconds a
+    call without a synchronise."""
+    import numpy as np
+    import torch
+
+    from pl_fem_tpu_torch import workloads as wl
+    from pl_fem_tpu_torch.ops import assembly as ta
+    from pl_fem_tpu_torch.ops import cuda_kernels as ck
+    from pl_fem_tpu_torch.ops import kernels as tk
+    from pl_fem_tpu_torch.ops import triton_kernels as trk
+
+    dev = torch.device("cuda")
+    geom = wl.config1_geom(1.55)
+    k2 = float(np.float32(geom.k0) ** 2)
+    Linv = torch.as_tensor(tk._LINV_REF, dtype=torch.float32, device=dev)
+    tr = float(np.trace(tk._B_REF))
+    out = {}
+    for name, dg in (("config1", wl.config1_sweep()[2]), ("r5", _r5_grid())):
+        ga = ta.grid_to_device(dg, dev)
+        ea = ta.eps_arrays(geom.eps_params(), dev)
+
+        def three():
+            re, _ = trk.eps_at_quadrature(ga.qp_xy, ea)
+            A, B = ck.scalar_blocks(ga.grad_phys, ga.qp_w, ga.shape_vals,
+                                    re, k2)
+            torch.diagonal(B, dim1=1, dim2=2).contiguous()
+            return ck.pencil_bounds(A, B, ga.elem_valid, Linv, tr, 1)
+
+        fns = {"K6+K7+K8": three}
+        if hasattr(ck, "scalar_pencil"):
+            fns["K11"] = lambda: ck.scalar_pencil(
+                ga.grad_phys, ga.qp_w, ga.qp_xy, ga.shape_vals, ea, k2,
+                ga.elem_valid, Linv, tr)
+        row = {"E": int(ga.qp_w.shape[0])}
+        for fname, fn in fns.items():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            host = (time.perf_counter() - t0) / reps * 1e3
+            torch.cuda.synchronize()
+            row[fname] = {"ms": _event_ms(fn, reps),
+                          "device_ms": _device_ms(fn, reps),
+                          "host_ms": host}
+            print(f"scalar set-up at {name} (E={row['E']}), {fname}: "
+                  f"{json.dumps(row[fname])}", flush=True)
+        out[name] = row
+    return out
+
+
 def dataset_design(n_cores: int = 7, scalar: bool = False):
     """The warm profile of one r5 dataset design (see the module note):
     through the sweep engine, or with ``scalar`` through the serial
@@ -568,7 +628,7 @@ def main(argv=None) -> int:
     ap.add_argument("--scalar", action="store_true",
                     help="profile one scalar dataset design instead")
     ap.add_argument("--kernels", action="store_true",
-                    help="time K9 and K10 alone instead")
+                    help="time K9, K10 and the scalar set-up alone instead")
     args = ap.parse_args(argv)
     repo = Path(args.repo).resolve()
     if sys.path and Path(sys.path[0] or ".").resolve() == HERE:
@@ -586,7 +646,8 @@ def main(argv=None) -> int:
           flush=True)
     if args.kernels:
         result = {"card": card, "repo": str(repo),
-                  "seed_rr_ms": seed_rr_times()}
+                  "seed_rr_ms": seed_rr_times(),
+                  "scalar_setup_ms": scalar_setup_times()}
     elif args.scalar:
         result = {"card": card, "repo": str(repo),
                   "scalar_solve": scalar_solves(SWEEPS),

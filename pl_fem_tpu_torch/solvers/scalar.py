@@ -55,16 +55,20 @@ class ScalarPencil:
     diag_B: torch.Tensor      # (D,) float32 assembled mass diagonal
     n_dofs: int               # valid DOF count
     k0: float
+    # () float32 spectrum bound of (A, B) from the assembly; None: the
+    # solve bounds the blocks itself (pencil_bounds_elem)
+    bound: Optional[torch.Tensor] = None
 
 
 def build_scalar_pencil(dg: DeviceGrid, eps_params, k0: float,
                         device) -> ScalarPencil:
-    """Assemble the scalar pencil's element blocks on ``device``."""
+    """Assemble the scalar pencil's element blocks and spectrum bound on
+    ``device`` (one K11 launch, and K2 for the mass diagonal)."""
     ga = grid_to_device(dg, device)
-    A, B, diag = assemble_scalar_system(
+    A, B, diag, bound = assemble_scalar_system(
         ga, eps_arrays(eps_params, device), np.float32(k0))
     return ScalarPencil(ga=ga, A_blocks=A, B_blocks=B, diag_B=diag,
-                        n_dofs=dg.n_dofs, k0=k0)
+                        n_dofs=dg.n_dofs, k0=k0, bound=bound)
 
 
 def scalar_pencil_from_numpy(dg_like, A_blocks, B_blocks, diag_B, k0: float,
@@ -73,7 +77,8 @@ def scalar_pencil_from_numpy(dg_like, A_blocks, B_blocks, diag_B, k0: float,
     grid fields of ``dg_like`` (any object carrying the DeviceGrid
     arrays) and assembled blocks A (E,6,6), B (E,6,6), diag_B (D,). The
     tests hand the JAX package's assembled pencil to
-    ``solve_lowest_kernel`` this way."""
+    ``solve_lowest_kernel`` this way. It carries no bound: the solve
+    bounds the blocks (K8)."""
     def t(a):
         return torch.tensor(np.asarray(a), dtype=torch.float32,
                             device=device)
@@ -86,12 +91,14 @@ def scalar_pencil_from_numpy(dg_like, A_blocks, B_blocks, diag_B, k0: float,
 
 def solve_pencil_lowest(pencil: ScalarPencil, X0, cut: float, **kw):
     """``solve_lowest_kernel`` on an assembled scalar pencil (C = 1, the
-    valid-DOF mask, the grid's quadrature weights for the mass applies).
-    Returns theta (k,), Xr (D, k) and res (k,)."""
+    valid-DOF mask, the grid's quadrature weights for the mass applies,
+    the pencil's own bound where it carries one). Returns theta (k,),
+    Xr (D, k) and res (k,)."""
     ga = pencil.ga
     return solve_lowest_kernel(
         pencil.A_blocks, pencil.B_blocks, gather_scatter(ga), ga.dof_valid,
-        pencil.diag_B, X0, cut, ga.elem_valid, ga.qp_w, C=1, **kw)
+        pencil.diag_B, X0, cut, ga.elem_valid, ga.qp_w, C=1,
+        bound=pencil.bound, **kw)
 
 
 class ScalarHelmholtzSolver:

@@ -7,8 +7,9 @@ is installed:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Tolerance: <= 1e-5 of max|y| (f32 kernel vs f32 twin, two orderings of
-the same sums); K6 decides eps_re exactly as its twin and holds eps_im
-to 1e-6 of max(1, max|eps_im|) (the kernel's exp / log against powf).
+the same sums); K6 and K11 decide eps_re exactly as their twins, and
+K6 holds eps_im to 1e-6 of max(1, max|eps_im|) (the kernel's exp / log
+against powf).
 """
 import threading
 import time
@@ -242,10 +243,11 @@ def scalar_setup(setup, dev):
     ga = setup["ga"]
     g = MCFGeometry(3, 8.0, 1.5, 1.535, 1.0, wavelength_um=1.55)
     ea = ta.eps_arrays(g.eps_params(), dev)
-    A, Bm, diag = ta.assemble_scalar_system(ga, ea, g.k0)
+    A, Bm, diag, bound = ta.assemble_scalar_system(ga, ea, g.k0)
     prim, _, _ = ta.assemble_vector3_system(ga, ea)
     A3 = ta.vector3_stacked_A(prim, np.float32(g.k0 * 1.45), np.float32(1.0))
-    return dict(g=g, ea=ea, A=A, B=Bm, diag=diag, A3=A3, M3=prim["u_nn"])
+    return dict(g=g, ea=ea, A=A, B=Bm, diag=diag, bound=bound, A3=A3,
+                M3=prim["u_nn"])
 
 
 def _check_stacked(gs, Abig, mask, X, C):
@@ -334,7 +336,8 @@ def test_scalar_blocks(setup, scalar_setup, dev):
     rA, rB = ck.scalar_blocks_plain(ga.grad_phys, ga.qp_w, ga.shape_vals,
                                     eps_re, k2)
     assert _rel(rA, A) <= 1e-5 and _rel(rB, Bm) <= 1e-5
-    assert torch.equal(A, scalar_setup["A"])        # bitwise repeatable
+    assert torch.equal(A, ck.scalar_blocks(ga.grad_phys, ga.qp_w,
+                                           ga.shape_vals, eps_re, k2)[0])
 
 
 @pytest.mark.parametrize("C", [1, 3])
@@ -357,6 +360,52 @@ def test_pencil_bounds(setup, scalar_setup, dev, C):
     assert float(b) >= float(ref64) * (1.0 - 1e-4)
     assert float(tk.pencil_bounds_elem(Abig, Bm, ga.elem_valid, C=C)[2]) \
         == float(b)
+
+
+def _k11_args(ga, g, dev):
+    Linv = torch.as_tensor(tk._LINV_REF, dtype=torch.float32, device=dev)
+    k0 = np.float32(g.k0)
+    return (ga.grad_phys, ga.qp_w, ga.qp_xy, ga.shape_vals,
+            ta.eps_arrays(g.eps_params(), dev), float(k0 * k0),
+            ga.elem_valid, Linv, tk._TRACE_REF)
+
+
+@pytest.mark.parametrize("case", ["pml", "no_pml", "r5"])
+def test_scalar_pencil(request, setup, dev, case):
+    """K11 against its twin on the small 3-core mesh (PML on and off) and
+    on the r5 mesh (7 cores): eps_re equal at every point, A and B within
+    1e-5 of their own scales, the diagonal terms B's own, the bound within
+    1e-5 relative and no further under the f64 twin than 1e-4; one
+    launch a call, bitwise repeatable, and the bound K8's on K11's own
+    blocks, bit for bit."""
+    if case == "r5":
+        ga = request.getfixturevalue("r5")["ga"]
+        g = MCFGeometry(7, 8.0, 1.5, 1.535, 1.0, wavelength_um=1.55)
+    else:
+        ga = setup["ga"]
+        g = MCFGeometry(3, 8.0, 1.5, 1.535, 1.0, wavelength_um=1.55,
+                        use_complex_pml=case == "pml")
+    args = _k11_args(ga, g, dev)
+    n0 = ck.scalar_pencil.launches
+    A, Bm, diag, bound, eps_re = ck.scalar_pencil(*args, return_eps=True)
+    assert ck.scalar_pencil.launches == n0 + 1
+    rA, rB, rdiag, rbound, reps = ck.scalar_pencil_plain(*args,
+                                                         return_eps=True)
+    assert torch.equal(eps_re, reps)
+    assert bool((eps_re == args[4].eps_core).any())     # core points
+    assert _rel(rA, A) <= 1e-5 and _rel(rB, Bm) <= 1e-5
+    assert torch.equal(diag, torch.diagonal(Bm, dim1=1, dim2=2))
+    assert _rel(rdiag, diag) <= 1e-5
+    assert bound.shape == () and bound.device.type == "cuda"
+    assert abs(float(bound) - float(rbound)) <= 1e-5 * float(rbound)
+    ref64 = ck.pencil_bounds_plain(rA.double(), rB.double(), ga.elem_valid,
+                                   args[7].double(), args[8], 1)
+    assert float(bound) >= float(ref64) * (1.0 - 1e-4)
+    again = ck.scalar_pencil(*args)
+    for x, y in zip((A, Bm, diag, bound), again):
+        assert torch.equal(x, y)
+    assert torch.equal(bound, ck.pencil_bounds(A, Bm, ga.elem_valid,
+                                               args[7], args[8], 1))
 
 
 def test_scalar_wrappers_refuse_bad_input(setup, scalar_setup, dev):
@@ -388,13 +437,32 @@ def test_scalar_wrappers_refuse_bad_input(setup, scalar_setup, dev):
     with pytest.raises(ValueError):             # f64 permittivity scalars
         trk.eps_at_quadrature(ga.qp_xy, ta.eps_arrays(
             scalar_setup["g"].eps_params(), dev, torch.float64))
+    k11 = _k11_args(ga, scalar_setup["g"], dev)
+    with pytest.raises(TypeError):              # f64 permittivity
+        ck.scalar_pencil(*k11[:4], ta.eps_arrays(
+            scalar_setup["g"].eps_params(), dev, torch.float64), *k11[5:])
+    with pytest.raises(ValueError):             # flags of another grid
+        ck.scalar_pencil(*k11[:6], ga.elem_valid[:-1].contiguous(),
+                         *k11[7:])
+    with pytest.raises(ValueError):             # points on the host
+        ck.scalar_pencil(*k11[:2], ga.qp_xy.cpu(), *k11[3:])
+    with pytest.raises(ValueError):             # points not (E, Q, 2)
+        ck.scalar_pencil(*k11[:2], ga.qp_xy[:, :, :1].contiguous(),
+                         *k11[3:])
+    E = ga.qp_w.shape[0]                        # Q = 17: more than it takes
+    with pytest.raises(RuntimeError):
+        ck.scalar_pencil(torch.zeros((E, 17, 6, 2), device=dev),
+                         torch.zeros((E, 17), device=dev),
+                         torch.zeros((E, 17, 2), device=dev),
+                         torch.zeros((17, 6), device=dev), *k11[4:])
 
 
 def test_scalar_solve_on_card_matches_cpu(dev):
-    """ScalarHelmholtzSolver.solve on the card (K2-K8) against the same
-    solve through the twins on the CPU from the same start block: n_eff
-    within 1e-6 after the host polish; every kernel of the path launches,
-    K5 once per A apply."""
+    """ScalarHelmholtzSolver.solve on the card (K2-K5, K10, K11) against
+    the same solve through the twins on the CPU from the same start
+    block: n_eff within 1e-6 after the host polish; every kernel of the
+    path launches, K5 once per A apply, K11 once and the standalone K6,
+    K7 and K8 not at all."""
     from pl_fem_tpu_torch.config import SolverConfig
     from pl_fem_tpu_torch.solvers import ScalarHelmholtzSolver
 
@@ -409,13 +477,17 @@ def test_scalar_solve_on_card_matches_cpu(dev):
     X0 = np.random.default_rng(42).standard_normal(
         (dg.n_dofs_padded, k)).astype(np.float32)
     wrappers = (ck.accumulate, ck.mass_apply, trk.cheb_step,
-                ck.apply_stacked, trk.eps_at_quadrature,
-                ck.scalar_blocks, ck.pencil_bounds)
+                ck.apply_stacked, ck.ritz_residual)
+    standalone = (trk.eps_at_quadrature, ck.scalar_blocks, ck.pencil_bounds)
     before = [f.launches for f in wrappers]
+    before_sa = [f.launches for f in standalone]
+    n11 = ck.scalar_pencil.launches
     on_card = ScalarHelmholtzSolver(geom, SimulationConfig(
         **mesh, solver=SolverConfig(device="cuda", **skw))).solve(dg, 8,
                                                                   X0=X0)
     assert all(f.launches > n for f, n in zip(wrappers, before))
+    assert ck.scalar_pencil.launches == n11 + 1
+    assert [f.launches for f in standalone] == before_sa
     # K5 once per A apply: per K4 step, and per pass (degree steps each)
     # in its Rayleigh-Ritz
     n4 = trk.cheb_step.launches - before[2]

@@ -109,10 +109,10 @@ def pencils():
         ep = g.eps_params()
         jA, jB, jdiag = ja.assemble_scalar_system(
             jga, ja.eps_arrays(ep, dtype=jnp.float32), jnp.float32(g.k0))
-        tA, tB, tdiag = ta.assemble_scalar_system(
+        tA, tB, tdiag, tbound = ta.assemble_scalar_system(
             tga, ta.eps_arrays(ep, "cpu"), g.k0)
         out.append(dict(g=g, jA=jA, jB=jB, jdiag=jdiag, tA=tA, tB=tB,
-                        tdiag=tdiag))
+                        tdiag=tdiag, tbound=tbound))
     rng = np.random.default_rng(7)
     return dict(dg=dg, jga=jga, tga=tga, jgs=ja.gather_scatter(jga),
                 tgs=ta.gather_scatter(tga), designs=out, rng=rng,
@@ -120,7 +120,7 @@ def pencils():
 
 
 # ---------------------------------------------------------------------------
-# assembly (K6 + K7 twins, K2 at L = 1)
+# assembly (K11's twin, K2 at L = 1)
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("gi", [0, 1])
@@ -146,6 +146,65 @@ def test_eps_twin_decides_every_point_as_jax(pencils):
                                          ta.eps_arrays(ep, "cpu"))
         assert np.array_equal(np.asarray(jre), tre.numpy())
         assert np.abs(np.asarray(jim) - tim.numpy()).max() <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# K11's twin: the scalar pencil's set-up in one call
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("gi", [0, 1])
+def test_scalar_pencil_twin_matches_jax(pencils, gi):
+    """K11's twin against the JAX package's assemble_scalar_system and
+    pencil_bounds_elem, PML on (design 0) and off (design 1): A, B and
+    B's diagonal terms within 1e-6, eps_re equal at every point, the
+    bound within 1e-5; the wrapper runs the twin on CPU tensors (no
+    launch counted), and the assembly carries the same bound."""
+    d = pencils["designs"][gi]
+    ga, jga = pencils["tga"], pencils["jga"]
+    ep = d["g"].eps_params()
+    k0 = np.float32(d["g"].k0)
+    n0 = ck.scalar_pencil.launches
+    A, B, diag, bound, eps_re = ck.scalar_pencil(
+        ga.grad_phys, ga.qp_w, ga.qp_xy, ga.shape_vals,
+        ta.eps_arrays(ep, "cpu"), float(k0 * k0), ga.elem_valid,
+        tk._linv_ref_on("cpu"), tk._TRACE_REF, return_eps=True)
+    assert ck.scalar_pencil.launches == n0
+    E = pencils["dg"].elem_dofs.shape[0]
+    assert A.shape == B.shape == (E, 6, 6) and diag.shape == (E, 6)
+    assert _rel(d["jA"], A.numpy()) <= 1e-6
+    assert _rel(d["jB"], B.numpy()) <= 1e-6
+    jdiag_e = np.diagonal(np.asarray(d["jB"]), axis1=1, axis2=2)
+    assert _rel(jdiag_e, diag.numpy()) <= 1e-6
+    jre, _ = ja.eps_at_quadrature(jga, ja.eps_arrays(ep, jnp.float32))
+    assert np.array_equal(np.asarray(jre), eps_re.numpy())
+    _, _, jb = jk.pencil_bounds_elem(d["jA"], d["jB"], jga.elem_valid, C=1)
+    assert bound.shape == ()
+    assert abs(float(jb) - float(bound)) <= 1e-5 * float(jb)
+    assert torch.equal(d["tbound"], bound)
+
+
+def test_carried_bound_solves_as_the_blocks_bound(pencils):
+    """``solve_pencil_lowest`` on the pencil ``build_scalar_pencil``
+    assembles, with the bound the assembly carries (K11's twin), gives
+    the bits of the same solve that bounds the blocks itself
+    (``pencil_bounds_elem``, K8's twin)."""
+    d = pencils["designs"][0]
+    g, dg = d["g"], pencils["dg"]
+    pen = tsc.build_scalar_pencil(dg, g.eps_params(), g.k0, "cpu")
+    _, _, b = tk.pencil_bounds_elem(pen.A_blocks, pen.B_blocks,
+                                    pen.ga.elem_valid, C=1)
+    assert torch.equal(pen.bound, b)
+    window = g.k0**2 * (g.n_core**2 - g.n_clad**2)
+    cut = -(g.k0 * g.n_clad) ** 2 + 0.02 * window
+    X0 = np.random.default_rng(13).standard_normal(
+        (dg.n_dofs_padded, K)).astype(np.float32)
+    kw = dict(degree=30, passes=2, max_passes=2, tol=1e-8, park=1.0,
+              n_wanted=K)
+    carried = tsc.solve_pencil_lowest(pen, X0, cut, **kw)
+    own = tsc.solve_pencil_lowest(dataclasses.replace(pen, bound=None), X0,
+                                  cut, **kw)
+    for x, y in zip(carried, own):
+        assert torch.equal(x, y)
 
 
 # ---------------------------------------------------------------------------
