@@ -86,6 +86,18 @@ In order:
    printed beside their counts before K9 and K10 (the same passes:
    504 / 500); the sweep's phase seconds,
    its ``assemble`` and ``bounds`` among them, are printed;
+   4b. runs the same sweep (after a warm-up) with its designs split over
+   two slices of the card (``solve_sweep(mesh=design_mesh(["cuda:0"] *
+   2))``): n_eff within 1e-5 relative of the unsplit sweep, every
+   vectorial Rayleigh-Ritz on 4 designs with its slice's device current
+   and the slices in order, K1 once per A apply and K10 once per pass
+   in each slice, the batched K6, K8 and K9 once per sweep or bootstrap;
+   it prints both s/design with the card's name and the split's
+   launches beside the unsplit sweep's; then B = 5 over the same two
+   slices (padded to 6, 3 designs a slice) against the unsplit B = 5
+   sweep from the same bootstrap noise and coarse start (n_eff within
+   1e-5), and, where more than one card is visible, the B = 8 sweep
+   over all of them;
 5. solves a single-core step fiber (r 1.5 um, n_core 1.53, air clad)
    through the same path and holds HE11's n_eff to the exact vector
    dispersion (ops/analytic.vector_modes) within 1e-3 relative, the
@@ -154,6 +166,7 @@ from pathlib import Path
 FIBER_MESH_MIN = 9000        # ~50k DOFs: the fiber at the production scale
 FIBER_REFINE = 1.5
 KERNEL_RTOL = 1e-5           # of max|y|, f32 kernel vs f32 twin
+SPLIT_RTOL = 1e-5            # split vs unsplit sweep n_eff, relative
 # the H100's published peaks (SXM, 700 W): HBM3 bytes/s, f32 FLOP/s
 # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -345,7 +358,10 @@ def _watch_sweep():
     Rayleigh-Ritz, the scalar solves on the device
     (``ScalarHelmholtzSolver._solve_device`` calls), record the lane
     count of
-    every K2 launch made through ``kernels``, and sum the seconds of
+    every K2 launch made through ``kernels``, record each vectorial
+    Rayleigh-Ritz's design count, device and current CUDA device
+    (``rr_slices``: one per slice and pass of a split sweep), and sum the
+    seconds of
     every named phase of every PhaseTimer (``phase_s``: the sweeps'
     ``assemble`` and ``bounds`` among them): the port's own functions,
     wrapped (two sweep threads may call them)."""
@@ -356,7 +372,7 @@ def _watch_sweep():
 
     seen = {"rr_passes": 0, "stacked_passes": 0, "sweeps": 0, "boots": 0,
             "scalar_solves": 0, "conversions": 0, "rr_conversions": 0,
-            "k2_lanes": set(), "phase_s": {}}
+            "k2_lanes": set(), "phase_s": {}, "rr_slices": []}
     lock = threading.Lock()
     in_rr = threading.local()
     rr, srr = tkn.cheb_sweep_rr_impl, tkn.cheb_rr_pass_impl
@@ -392,8 +408,13 @@ def _watch_sweep():
         return acc(Ye, *args, **kw)
 
     def rr_seen(*args, **kw):
+        import torch
+
+        Xff = args[6]
         with lock:
             seen["rr_passes"] += 1
+            seen["rr_slices"].append((Xff.shape[1], Xff.device.index,
+                                      torch.cuda.current_device()))
         in_rr.active = True
         try:
             return rr(*args, **kw)
@@ -1524,6 +1545,147 @@ def _scalar_assemble_split(dg, geom, dev, runs: int = 3):
     return out
 
 
+def _neff_rel(ref, out):
+    """The largest relative n_eff difference of two sweeps' results;
+    raises unless every design has the same number of modes (and some)."""
+    worst = 0.0
+    for mr, mo in zip(ref, out, strict=True):
+        if not mr or len(mr) != len(mo):
+            raise AssertionError(f"split sweep: {len(mo)} modes against "
+                                 f"{len(mr)} unsplit")
+        worst = max(worst, max(abs(a["n_eff"] - b["n_eff"]) / b["n_eff"]
+                               for a, b in zip(mo, mr)))
+    return worst
+
+
+def _check_split_launches(what, launches, seen, mesh, width):
+    """The split sweep's own counts: every vectorial Rayleigh-Ritz ran on
+    ``width`` designs on its slice's device with that device current,
+    the slices in mesh order, one per slice and pass; per slice K1 once
+    per A apply (K1 = K4 steps + passes over the slices) and K10 once per
+    pass; the sweep-wide kernels once per sweep (the batched K6, K8) or
+    per bootstrap (K9), on the sweep's device."""
+    sl = seen["rr_slices"]
+    n = mesh.size
+    per = {name: launches[name] / n for name in
+           ("apply_vector3", "mass_apply", "cheb_step", "ritz_residual")}
+    print(f"{what}: {n} slices; Rayleigh-Ritz calls {len(sl)} at widths "
+          f"{sorted({w for w, _, _ in sl})}; launches per slice "
+          f"{json.dumps(per)}; K6 / K8 / K9 {launches['inv_eps_at_quadrature']}"
+          f" / {launches['pencil_bounds_vector3']} / "
+          f"{launches['seed_prolong']} for {seen['sweeps']} sweeps",
+          flush=True)
+    if not sl or len(sl) % n:
+        raise AssertionError(f"{what}: Rayleigh-Ritz calls not one per "
+                             f"slice and pass")
+    for i, (w, index, current) in enumerate(sl):
+        if w != width or index != mesh.devices[i % n].index \
+                or current != index:
+            raise AssertionError(f"{what}: Rayleigh-Ritz {i} on {w} designs "
+                                 f"of cuda:{index} (current cuda:{current})")
+    _check_apply_launches(what, launches, seen)
+    _check_sweep_launches(what, launches, seen)
+    _check_seed_rr_launches(what, launches, seen)
+
+
+def _split_phase(Solver, geoms, dg, cfg, sweep, unsplit_s, unsplit_counts,
+                 reset_counts, read_counts, card):
+    """The config-1 sweep split over two slices of the card: a warm-up,
+    then the timed run held to the unsplit sweep ``sweep`` (n_eff within
+    SPLIT_RTOL) with its own launch counts; B = 5 over the same two
+    slices (padded to 6) against the unsplit B = 5 sweep from the same
+    random numbers; and, where more than one card is visible, the sweep
+    over all of them. Returns the timed split run's launch counts."""
+    import numpy as np
+    import torch
+
+    from pl_fem_tpu_torch import workloads as wl
+    from pl_fem_tpu_torch.parallel import design_mesh
+
+    home = torch.cuda.current_device()
+    mesh = design_mesh([f"cuda:{home}"] * 2)
+    B = len(geoms)
+    Solver.solve_sweep(geoms, dg, wl.N_MODES, cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _watch_sweep() as seen:
+        out = Solver.solve_sweep(geoms, dg, wl.N_MODES, cfg, mesh=mesh)
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    phases = {p: round(v, 3) for p, v in Solver.last_sweep_times.items()}
+    rel = _neff_rel(sweep, out)
+    print(f"split sweep, B = {B} over 2 slices of cuda:{home}: {dt:.2f} s = "
+          f"{dt / B:.3f} s/design against {unsplit_s / B:.3f} s/design "
+          f"unsplit (card {card}); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phases (s) "
+          f"{json.dumps(phases)}; n_eff against the unsplit sweep: max rel "
+          f"{rel:.2e} (limit {SPLIT_RTOL:g})", flush=True)
+    if torch.cuda.current_device() != home:
+        raise AssertionError("the split sweep left another current device")
+    if not rel <= SPLIT_RTOL:
+        raise AssertionError(f"split sweep n_eff rel {rel:.2e} > "
+                             f"{SPLIT_RTOL:g}")
+    _check_split_launches("the split sweep", counts, seen, mesh, B // 2)
+    print("the split sweep against the unsplit one, launches: "
+          + json.dumps({name: [counts[name], unsplit_counts[name]]
+                        for name in ("apply_vector3", "mass_apply",
+                                     "cheb_step", "ritz_residual",
+                                     "seed_prolong")}), flush=True)
+
+    # B = 5 does not divide over 2 slices: padded with the last design.
+    # Both sweeps take the same bootstrap noise and coarse start block, so
+    # the split computes what the unsplit sweep computes
+    g5 = geoms[:5]
+    k = wl.N_MODES + cfg.solver.extra_vectors
+    rng = np.random.default_rng(5)
+    noise = tuple(rng.standard_normal((3 * dg.n_dofs_padded, 5, k),
+                                      dtype=np.float32) for _ in range(2))
+
+    def coarse_X0(shape):
+        return np.random.default_rng(6).standard_normal(shape,
+                                                        dtype=np.float32)
+
+    ref5 = Solver.solve_sweep(g5, dg, wl.N_MODES, cfg, noise=noise,
+                              coarse_X0=coarse_X0)
+    reset_counts()
+    with _watch_sweep() as seen5:
+        out5 = Solver.solve_sweep(g5, dg, wl.N_MODES, cfg, noise=noise,
+                                  coarse_X0=coarse_X0, mesh=mesh)
+        torch.cuda.synchronize()
+    rel5 = _neff_rel(ref5, out5)
+    print(f"split sweep, B = 5 over 2 slices (padded to 6): {len(out5)} "
+          f"results; n_eff against the unsplit B = 5 sweep: max rel "
+          f"{rel5:.2e} (limit {SPLIT_RTOL:g})", flush=True)
+    if len(out5) != 5 or not rel5 <= SPLIT_RTOL:
+        raise AssertionError(f"padded split sweep: {len(out5)} results, "
+                             f"n_eff rel {rel5:.2e}")
+    # the outer call of a padded sweep only pads and calls solve_sweep
+    # again: it assembles nothing
+    _check_split_launches("the padded split sweep", read_counts(),
+                          dict(seen5, sweeps=seen5["sweeps"] - 1), mesh, 3)
+
+    if torch.cuda.device_count() > 1:
+        everywhere = design_mesh()
+        Solver.solve_sweep(geoms, dg, wl.N_MODES, cfg, mesh=everywhere)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_all = Solver.solve_sweep(geoms, dg, wl.N_MODES, cfg,
+                                     mesh=everywhere)
+        torch.cuda.synchronize()
+        dt_all = time.perf_counter() - t0
+        rel_all = _neff_rel(sweep, out_all)
+        print(f"split sweep over {everywhere.size} cards: {dt_all:.2f} s = "
+              f"{dt_all / B:.3f} s/design; n_eff max rel {rel_all:.2e}",
+              flush=True)
+        if not rel_all <= SPLIT_RTOL:
+            raise AssertionError(f"sweep over all cards: n_eff rel "
+                                 f"{rel_all:.2e} > {SPLIT_RTOL:g}")
+    return counts
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1650,6 +1812,10 @@ def main() -> int:
     _check_sweep_launches("the timed sweep", launches, seen)
     _check_seed_rr_launches("the timed sweep", launches, seen, (504, 500))
     sweep_phase_s = dict(seen["phase_s"])
+
+    # -- 4b. the same sweep with its designs split over two slices ------
+    launches_split = _split_phase(Solver, geoms, dg, cfg, sweep, dt,
+                                  launches, reset_counts, read_counts, card)
 
     # -- 5. single-core step fiber against the exact dispersion ---------
     fiber = MCFGeometry(1, 8.0, 1.5, 1.53, 1.0, wavelength_um=1.55,
@@ -1994,6 +2160,7 @@ def main() -> int:
     kernels = []
     for name, (route, source, replaces) in meta.items():
         by_path = {"sweep": launches_sweep[name],
+                   "split_sweep": launches_split[name],
                    "dataset": launches_ds[name],
                    "scalar_solve": launches_scalar[name],
                    "scalar_dataset": launches_sds[name]}

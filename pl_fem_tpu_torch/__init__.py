@@ -18,27 +18,58 @@ twins.
 
 __version__ = "0.1.0"
 
-from .config import MeshConfig, SimulationConfig, SolverConfig, solver_preset
+from .config import (
+    MeshConfig,
+    PhotonicLanternDesignParameters,
+    PhysicalConstants,
+    SimulationConfig,
+    SolverConfig,
+    solver_preset,
+)
 from .constants import PHYS, PhysConst
-from .models import EpsParams, MCFGeometry
+from .materials import Air, IPDipCauchy, Silica
+from .models import (
+    EpsParams,
+    MCFGeometry,
+    MMFGeometry,
+    PhotonicLantern,
+    PhotonicLanternGeometry,
+    TaperSection,
+)
 
 __all__ = [
-    "PHYS", "PhysConst", "SimulationConfig", "SolverConfig", "MeshConfig",
-    "solver_preset", "MCFGeometry", "EpsParams",
+    "PHYS", "PhysConst", "PhysicalConstants", "SimulationConfig",
+    "SolverConfig", "MeshConfig", "PhotonicLanternDesignParameters",
+    "solver_preset", "IPDipCauchy", "Silica", "Air",
+    "MCFGeometry", "MMFGeometry", "PhotonicLantern",
+    "PhotonicLanternGeometry", "TaperSection", "EpsParams",
     # lazy (see __getattr__)
-    "TrueVectorialMaxwellSolver", "ScalarHelmholtzSolver", "MeshGenerator",
+    "ScalarHelmholtzSolver", "TrueVectorialMaxwellSolver",
+    "LossCalculator", "EnhancedLossCalculator", "VectorialLossCalculator",
+    "CoupledModeTheory", "MeshGenerator",
+    "DatasetGenerator", "DatasetRecord", "SmartSampler", "AdaptiveSampler",
+    "ParametricSpace",
 ]
 
 _LAZY = {
     "TrueVectorialMaxwellSolver": "solvers.vectorial",
     "ScalarHelmholtzSolver": "solvers.scalar",
+    "LossCalculator": "physics",
+    "EnhancedLossCalculator": "physics",
+    "VectorialLossCalculator": "physics",
+    "CoupledModeTheory": "physics.cmt",
     "MeshGenerator": "ops.femgrid",
+    "DatasetGenerator": "dataset",
+    "DatasetRecord": "dataset",
+    "SmartSampler": "dataset",
+    "AdaptiveSampler": "dataset",
+    "ParametricSpace": "dataset",
 }
 
 
 def __getattr__(name):
-    """Lazy exports: importing the package stays light; the solver stack
-    (torch) loads on first attribute access."""
+    """Lazy exports: importing the package stays light; the solver,
+    physics and dataset stacks (torch) load on first attribute access."""
     if name in _LAZY:
         import importlib
 

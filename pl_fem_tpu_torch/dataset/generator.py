@@ -15,7 +15,9 @@ losses and the CMT propagation on the host; every mode solve on
 ``SolverConfig.device``: the vectorial bucket sweeps and CMT slice
 sweeps through ``solve_sweep``, the scalar runs (``use_vectorial=False``)
 design by design and slice by slice through ``ScalarHelmholtzSolver``.
-With ``SolverConfig.backend == "hybrid"`` the serial engine's design
+With more than one CUDA device visible and ``SolverConfig.device`` a
+bare "cuda", the bucket and CMT slice sweeps split their designs over
+all of them (``_device_mesh``). With ``SolverConfig.backend == "hybrid"`` the serial engine's design
 solves run scipy ARPACK on the host instead.
 """
 from __future__ import annotations
@@ -30,11 +32,13 @@ from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..config import SimulationConfig
 from ..materials import IPDipCauchy
 from ..models import MCFGeometry, taper_profile_fraction
 from ..ops.femgrid import MeshGenerator, export_device_grid
+from ..parallel import design_mesh
 from ..physics import LossCalculator
 from ..physics.cmt import CoupledModeTheory
 from ..solvers import ScalarHelmholtzSolver, TrueVectorialMaxwellSolver
@@ -190,6 +194,17 @@ class DatasetGenerator:
 
     def _n_modes_target(self, geom) -> int:
         return self.config.n_modes_target or math.ceil(2.8 * geom.n_cores)
+
+    def _device_mesh(self):
+        """The 'designs' mesh over every visible CUDA device when the
+        solver's device is a bare "cuda" and more than one is visible,
+        else None: the bucket and CMT slice sweeps split their designs
+        over it (the serial engine's single-design solves do not)."""
+        dev = torch.device(self.config.solver.device)
+        if dev.type != "cuda" or dev.index is not None \
+                or torch.cuda.device_count() < 2:
+            return None
+        return design_mesh()
 
     def _postsolve(self, rec: DatasetRecord, sample: Dict, geom,
                    modes: List[Dict], pmetrics: Dict, timer) -> None:
@@ -397,10 +412,14 @@ class DatasetGenerator:
         band = self.config.mesh.bucket_ratio_band
         groups = group_by_bucket([p[2] for p in prepared], band)
         self.bucket_sizes = [len(rows) for rows in groups.values()]
+        dev_mesh = self._device_mesh()
         pipeline = max(1, int(self.config.pipeline_buckets))
-        logger.info("bucketed run: %d samples -> %d buckets%s",
+        logger.info("bucketed run: %d samples -> %d buckets (%s%s)",
                     len(prepared), len(groups),
-                    f" ({pipeline}-bucket pipeline)" if pipeline > 1 else "")
+                    f"{dev_mesh.size}-device mesh" if dev_mesh is not None
+                    else "single device",
+                    f", {pipeline}-bucket pipeline" if pipeline > 1
+                    else "")
         emit_lock = threading.Lock()
 
         def _solve_bucket(key, rows):
@@ -421,7 +440,7 @@ class DatasetGenerator:
                 with btimer.phase("solve"):
                     sweep = TrueVectorialMaxwellSolver.solve_sweep(
                         [c for c, _ in pairs], dg, n_target, self.config,
-                        diag_out=sweep_diags)
+                        diag_out=sweep_diags, mesh=dev_mesh)
             except Exception as e:
                 logger.warning("bucket %s failed: %s", key, e)
                 for (i, _, _, _) in members:
@@ -532,7 +551,8 @@ class DatasetGenerator:
                                           self.config.mesh.bucket_rounding)
                 pairs = [canonicalize(gz, cls_geom) for gz in geos_z]
                 sweeps = TrueVectorialMaxwellSolver.solve_sweep(
-                    [c for c, _ in pairs], dg_t, n_modes, self.config)
+                    [c for c, _ in pairs], dg_t, n_modes, self.config,
+                    mesh=self._device_mesh())
                 full = bool(self.config.cmt_full_field)
                 for gz, (_, s), mz in zip(geos_z, pairs, sweeps):
                     mz = rescale_modes(mz, s, gz.k0)

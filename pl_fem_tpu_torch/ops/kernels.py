@@ -38,6 +38,8 @@ vectorial sweep in one launch.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import functools
 import logging
 import threading
@@ -474,10 +476,93 @@ def cheb_sweep_rr_impl(qs, gs, mask, parks, betas, alpha, Xff, cuts,
     return theta, _fused_ritz_vectors(Qf, Ys), res, gate
 
 
+def _on_device(dev: torch.device):
+    """``dev`` as the CUDA runtime's current device inside the block (the
+    ctypes and Triton launches run on the current device), restored
+    after; nothing on the CPU."""
+    return torch.cuda.device(dev) if dev.type == "cuda" \
+        else contextlib.nullcontext()
+
+
+def _to(x, dev: torch.device):
+    """The tensors of ``x`` (a tensor or a NamedTuple of them, nested) on
+    ``dev``; anything else as it is."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_to(v, dev) for v in x))
+    return x
+
+
+@dataclasses.dataclass
+class _DesignSlice:
+    """One slice of a split sweep: its device, the grid's topology,
+    quadrature factors, mask and mass scaling on it, its designs'
+    per-design values, and its part Xf (D, b, 3, k) of the fused state."""
+
+    dev: torch.device
+    qs: QFactorSweep
+    gs: object
+    mask: torch.Tensor
+    dinv_sqrt: torch.Tensor
+    cuts: torch.Tensor
+    betas: torch.Tensor
+    parks: torch.Tensor
+    bounds: torch.Tensor
+    Xf: torch.Tensor
+
+
+def _design_slices(mesh, qs, gs, mask, dinv_sqrt, cuts, betas, parks,
+                   bounds, Xf):
+    """The slices of a sweep over ``mesh`` (or the one slice of the whole
+    sweep, the given tensors as they are, where there is no mesh).
+
+    A slice takes its designs' 1/eps, per-design values and columns of
+    the fused state as fresh contiguous copies on its device (a view
+    Xf[:, s:e] is not contiguous, and K9 / K10 want 16-byte starts). The
+    grid's topology with the K1 and K3 plans, the shared quadrature
+    factors, the mask and the mass scaling are copied once per device
+    other than the sweep's and shared by the slices on it; on the
+    sweep's device they are the caller's."""
+    home = qs.w.device
+    B = Xf.shape[1]
+    if mesh is None or mesh.size == 1:
+        return [_DesignSlice(home, qs, gs, mask, dinv_sqrt, cuts, betas,
+                             parks, bounds, Xf)]
+    shared = {home: (qs, gs, mask, dinv_sqrt)}
+    out = []
+    for dev, s, e in mesh.ranges(B):
+        if dev not in shared:
+            shared[dev] = tuple(_to(x, dev) for x in (
+                qs._replace(inv_eps=qs.inv_eps[:0]), gs, mask, dinv_sqrt))
+        qs_d, gs_d, mask_d, dinv_d = shared[dev]
+
+        def part(t):
+            return t[s:e].to(dev, copy=True).contiguous()
+
+        out.append(_DesignSlice(
+            dev, qs_d._replace(inv_eps=part(qs.inv_eps)), gs_d,
+            mask_d, dinv_d, part(cuts), part(betas), part(parks),
+            part(bounds), Xf[:, s:e].to(dev, copy=True).contiguous()))
+    return out
+
+
+def _split_gate(thetas, ress, cuts, n_wanted: int, dev: torch.device):
+    """The pass gate of a split sweep: every slice's theta and res
+    (B_i, k), in design order, gathered onto ``dev`` and reduced once by
+    ``_sweep_gate_maxres`` over the whole (B, k), as the JAX package's
+    global reduce does. The max of the slices' own gates would be wrong:
+    a slice with no wanted column reports its smallest residual. Returns
+    (theta, res, gate) on ``dev``."""
+    theta = torch.cat([t.to(dev) for t in thetas])
+    res = torch.cat([r.to(dev) for r in ress])
+    return theta, res, _sweep_gate_maxres(theta, res, cuts, n_wanted)
+
+
 def solve_lowest_sweep(qs: QFactorSweep, gs, mask, diag_B, X0, cuts, betas,
                        alpha, bounds, degree: int = 300, passes: int = 2,
                        tol: float = 1e-7, max_passes: int = 8, parks=None,
-                       binv_degree: int = 4, n_wanted: int = 0):
+                       binv_degree: int = 4, n_wanted: int = 0, mesh=None):
     """Adaptive pass driver for the packed same-grid sweep.
 
     X0, a tensor or a numpy array, is moved to the device of ``qs``: the
@@ -488,6 +573,14 @@ def solve_lowest_sweep(qs: QFactorSweep, gs, mask, diag_B, X0, cuts, betas,
     fused from pass to pass; after ``passes`` passes the loop reads the
     pass gate (one scalar) and stops once the worst wanted residual is
     below max(tol, 5e-6) or improves by less than 30%.
+
+    ``mesh``: an optional ``parallel.DesignMesh``; B must divide over it
+    (the solver pads). Each slice filters and projects its contiguous
+    range of the designs on its device (``_design_slices``), the filters
+    of all slices issued before their Rayleigh-Ritz tails, every launch
+    under its device; the gate is reduced over all designs
+    (``_split_gate``) on the device of ``qs``, where the results are
+    stitched back in design order.
     Returns theta (B, k), Xr (3D, B, k) and res (B, k).
     """
     dev = qs.w.device
@@ -508,24 +601,44 @@ def solve_lowest_sweep(qs: QFactorSweep, gs, mask, diag_B, X0, cuts, betas,
     bounds = torch.maximum(bounds, parks * np.float32(1.05))
     X = torch.as_tensor(X0, device=dev).to(f32)
     Xf = X if X.dim() == 4 else _fused_from_stacked(X)
+    parts = _design_slices(mesh, qs, gs, mask, dinv_sqrt, cuts, betas, parks,
+                           bounds, Xf)
+    del X, Xf
     theta = res = None
     prev = np.inf
     for ip in range(max_passes):
         t0 = time.perf_counter()
-        Xff = cheb_sweep_filter(qs, gs, mask, dinv_sqrt, lo, hi, parks,
-                                betas, float(alpha), Xf, cuts, bounds,
-                                degree=degree, binv_degree=binv_degree)
-        theta, Xf, res, gate = cheb_sweep_rr_impl(
-            qs, gs, mask, parks, betas, float(alpha), Xff, cuts,
-            n_wanted=n_wanted)
+        filtered = []
+        for p in parts:
+            with _on_device(p.dev):
+                filtered.append(cheb_sweep_filter(
+                    p.qs, p.gs, p.mask, p.dinv_sqrt, lo, hi, p.parks,
+                    p.betas, float(alpha), p.Xf, p.cuts, p.bounds,
+                    degree=degree, binv_degree=binv_degree))
+        outs = []
+        for p, Xff in zip(parts, filtered):
+            with _on_device(p.dev):
+                outs.append(cheb_sweep_rr_impl(
+                    p.qs, p.gs, p.mask, p.parks, p.betas, float(alpha), Xff,
+                    p.cuts, n_wanted=n_wanted))
+            p.Xf = outs[-1][1]
+        del filtered
+        if len(parts) == 1:
+            theta, _, res, gate = outs[0]
+        else:
+            theta, res, gate = _split_gate([o[0] for o in outs],
+                                           [o[2] for o in outs], cuts,
+                                           n_wanted, dev)
         if ip + 1 >= passes:
             maxres = float(gate)
-            _log.debug("sweep pass %d (deg %d, binv %d): %.2fs maxres=%.2e",
-                       ip, degree, binv_degree, time.perf_counter() - t0,
-                       maxres)
+            _log.debug("sweep pass %d (deg %d, binv %d, %d slices): %.2fs "
+                       "maxres=%.2e", ip, degree, binv_degree, len(parts),
+                       time.perf_counter() - t0, maxres)
             if maxres < eff_tol or maxres > 0.7 * prev:
                 break
             prev = maxres
+    Xf = parts[0].Xf if len(parts) == 1 else \
+        torch.cat([p.Xf.to(dev) for p in parts], dim=1)
     return theta, _stacked_from_fused(Xf), res
 
 

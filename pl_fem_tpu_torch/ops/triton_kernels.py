@@ -33,6 +33,13 @@ Two programs, both launched on PyTorch's current stream:
   the partials over all row groups and the C components in a fixed
   order (so s is deterministic) and writes s (B, k).
 
+Neither is specialized on the lane count L (nor ``_colnorm`` on the
+pair count): the order of a renorm's sums then does not depend on how
+many designs share the block, so a design's scale is the same bits in a
+sweep of B designs and in a slice of it (``solve_sweep(mesh=)``); with
+L specialized, a config-1 design's scale moved by ~1e-7 between B = 8
+and B = 4, which the bootstrap's seed turned into 1.2e-5 in n_eff.
+
 Bound on the H100: bytes. A step reads W, T1, T0 and writes T2, four
 (D, L) f32 arrays, whether renorm or not: the scales are (B, k)
 vectors, and the partials 1 / (32 NT) of a block. The design fuses the
@@ -107,7 +114,11 @@ def _build():
     import triton.language as tl
     from triton.language.extra import libdevice
 
-    @triton.jit
+    # L (and NPAIR) are not specialized: Triton's layout for a tile, and
+    # with it the order of the per-column sums of a renorm, follows what
+    # it knows of L's divisibility, so a design's scale would change with
+    # the number of designs sharing the block (a split sweep's slices)
+    @triton.jit(do_not_specialize=["L"])
     def _step(W, V, T0, C, H, SV, ST0, OUT, P, D, L, K: tl.constexpr,
               LB: tl.constexpr, FIRST: tl.constexpr, RENORM: tl.constexpr,
               HAS_SV: tl.constexpr, HAS_ST0: tl.constexpr,
@@ -146,7 +157,7 @@ def _build():
         if RENORM:
             tl.store(P + pid_d * L + cols, ps, mask=cmask)
 
-    @triton.jit
+    @triton.jit(do_not_specialize=["L", "NPAIR"])
     def _colnorm(P, S, NRB, L, NPAIR, K: tl.constexpr, C: tl.constexpr,
                  BP: tl.constexpr, BR: tl.constexpr):
         pairs = tl.program_id(0) * BP + tl.arange(0, BP)  # (design, column)

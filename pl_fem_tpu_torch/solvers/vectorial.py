@@ -57,8 +57,10 @@ from ..ops.host_assembly import (
     vector3_prims_np,
 )
 from ..ops.cuda_kernels import seed_prolong
-from ..ops.kernels import (_fused_from_stacked, pencil_bounds_sweep,
-                           seed_prolong_plain, solve_lowest_sweep)
+from ..ops.kernels import (_fused_from_stacked, _on_device,
+                           pencil_bounds_sweep, seed_prolong_plain,
+                           solve_lowest_sweep)
+from ..parallel import design_mesh
 from .postproc import polarization_from_powers, polarization_label
 
 logger = logging.getLogger("pl_fem_tpu_torch.solvers.vectorial")
@@ -213,7 +215,7 @@ def _sweep_running():
 
 
 def _designs_per_sweep(dev: torch.device, E_pad: int, Dp: int,
-                       k: int) -> int:
+                       k: int, mesh=None) -> int:
     """Most designs one packed sweep may hold on ``dev``.
 
     Per design the filter holds the (E, 6, 3k) element block and about
@@ -222,7 +224,18 @@ def _designs_per_sweep(dev: torch.device, E_pad: int, Dp: int,
     temporaries, and the half is shared equally by the threads running
     sweeps at the time (the dataset engine's bucket pipeline runs two):
     each thread sees the same free memory, so each taking half would
-    leave no margin. No split on the CPU."""
+    leave no margin. No split on the CPU.
+
+    With a ``mesh`` the budget is per device: each device's is shared by
+    the slices it holds, every slice takes as many designs as the most
+    loaded device allows, and the sweep holds that many times the slice
+    count."""
+    if mesh is not None:
+        per_slice = min(
+            max(1, _designs_per_sweep(d, E_pad, Dp, k)
+                // mesh.devices.count(d))
+            for d in set(mesh.devices))
+        return per_slice * mesh.size
     if dev.type != "cuda":
         return 1 << 30
     free, _ = torch.cuda.mem_get_info(dev)
@@ -240,6 +253,36 @@ def _max_rounds(beta_passes: int, qres_max_rounds: Optional[int]) -> int:
     if beta_passes == 1:
         return 1
     return max(beta_passes, qres_max_rounds or 6)
+
+
+def _pad_active(idx, B: int, mesh=None) -> list:
+    """Pad an active-design index list to a power-of-two filter width
+    that divides over the ``mesh`` (at least its size; at most B, which
+    divides), repeating the last active design."""
+    w = 1
+    while w < len(idx):
+        w *= 2
+    if mesh is not None:
+        w = max(w, mesh.size)
+        w = -(-w // mesh.size) * mesh.size
+    w = min(max(w, 1), B)
+    return list(idx) + [idx[-1]] * (w - len(idx))
+
+
+def _pad_designs(a, B: int, pad: int):
+    """``a`` (an array or tensor (rows, B, k), or a function of such a
+    shape returning one, as ``solve_sweep`` takes its start blocks) with
+    the last design's columns repeated ``pad`` more times; None stays
+    None."""
+    if a is None:
+        return None
+    if callable(a):
+        return lambda shape: _pad_designs(a((shape[0], B, shape[2])), B,
+                                          pad)
+    if isinstance(a, torch.Tensor):
+        return torch.cat([a, a[:, -1:].expand(-1, pad, -1)], dim=1)
+    a = np.asarray(a)
+    return np.concatenate([a, np.repeat(a[:, -1:], pad, axis=1)], axis=1)
 
 
 class TrueVectorialMaxwellSolver:
@@ -365,13 +408,14 @@ class TrueVectorialMaxwellSolver:
     def _bootstrap_sweep(cls, geometries, dg: DeviceGrid,
                          n_modes_target: int, cfg: SimulationConfig,
                          generator: torch.Generator, noise=None,
-                         coarse_X0=None):
+                         coarse_X0=None, mesh=None):
         """Coarse-mesh solve -> prolonged Ritz vectors + per-design beta.
 
         Solves the same sweep on a ~6x-coarser mesh and P2-interpolates
         the polished coarse modes onto the fine DOFs. ``coarse_X0`` is
         the coarse sweep's ``X0`` (see ``solve_sweep``), ``noise`` the
-        seed's blend. Returns (X0 (Dp, B, 3, k) f32 tensor in the
+        seed's blend; the coarse sweep splits over ``mesh`` as the fine
+        one does. Returns (X0 (Dp, B, 3, k) f32 tensor in the
         filter's fused layout, betas (B,), used mask) or None if the
         bootstrap is not applicable.
         """
@@ -430,7 +474,8 @@ class TrueVectorialMaxwellSolver:
                 return None
             results_c = cls.solve_sweep(geometries, grid_c,
                                         n_modes_target, coarse_cfg,
-                                        _raw_modes=True, X0=coarse_X0)
+                                        _raw_modes=True, X0=coarse_X0,
+                                        mesh=mesh)
         except (ValueError, QhullError, np.linalg.LinAlgError,
                 torch.linalg.LinAlgError) as e:
             # the bootstrap only accelerates; a failed coarse solve
@@ -472,7 +517,7 @@ class TrueVectorialMaxwellSolver:
                     config: Optional[SimulationConfig] = None,
                     _raw_modes: bool = False,
                     diag_out: Optional[Dict[int, str]] = None,
-                    X0=None, noise=None, coarse_X0=None):
+                    X0=None, noise=None, coarse_X0=None, mesh=None):
         """Solve B same-grid designs in one packed device sweep.
 
         All geometries must share the mesh; they may differ in
@@ -497,17 +542,27 @@ class TrueVectorialMaxwellSolver:
         numbers; by default they come from a ``torch.Generator`` seeded
         with ``SolverConfig.seed``.
 
+        ``mesh``: an optional ``parallel.DesignMesh`` of devices of
+        ``SolverConfig.device``'s type; the filter's design axis splits
+        over it (``kernels.solve_lowest_sweep``). A mesh larger than B
+        shrinks to B slices (to none at B = 1), and a B that does not
+        divide over it is padded with the last design, whose extra
+        results are dropped. The set-up (assembly, bounds, start block,
+        bootstrap seed) and the host polish stay on
+        ``SolverConfig.device``.
+
         Safe to call from several threads at once (the dataset engine's
         bucket pipeline): the device-memory budget is shared among them.
         """
-        with _sweep_running():
+        dev = _device_of(config or SimulationConfig())
+        with _sweep_running(), _on_device(dev):
             return cls._solve_sweep(geometries, grid, n_modes_target,
                                     config, _raw_modes, diag_out, X0, noise,
-                                    coarse_X0)
+                                    coarse_X0, mesh)
 
     @classmethod
     def _solve_sweep(cls, geometries, grid, n_modes_target, config,
-                     _raw_modes, diag_out, X0, noise, coarse_X0):
+                     _raw_modes, diag_out, X0, noise, coarse_X0, mesh):
         from ..utils import PhaseTimer
 
         timer = PhaseTimer()
@@ -551,7 +606,7 @@ class TrueVectorialMaxwellSolver:
                     sub = cls.solve_sweep([geometries[i] for i in good],
                                           dg, n_modes_target, cfg,
                                           _raw_modes=_raw_modes,
-                                          diag_out=sub_d)
+                                          diag_out=sub_d, mesh=mesh)
                     for j, i in enumerate(good):
                         results[i] = sub[j]
                         if j in sub_d:
@@ -561,10 +616,37 @@ class TrueVectorialMaxwellSolver:
                 cls.last_sweep_diagnostics = diags
                 return results
 
+        if mesh is not None and mesh.size > 1:
+            if any(d.type != dev.type for d in mesh.devices):
+                raise ValueError(f"design mesh {[str(d) for d in mesh.devices]}"
+                                 f" does not match SolverConfig.device "
+                                 f"{dev}")
+            if B < mesh.size:
+                # padding a narrow sweep up to the whole mesh multiplies
+                # the work on each slice instead of dividing it
+                mesh = design_mesh(mesh.devices[:B]) if B > 1 else None
+        if mesh is not None and mesh.size > 1:
+            if B % mesh.size:
+                pad = mesh.size - B % mesh.size
+                sub_d = {}
+                out = cls.solve_sweep(
+                    list(geometries) + [geometries[-1]] * pad, dg,
+                    n_modes_target, cfg, _raw_modes=_raw_modes,
+                    diag_out=sub_d, X0=_pad_designs(X0, B, pad),
+                    noise=None if noise is None else tuple(
+                        _pad_designs(r, B, pad) for r in noise),
+                    coarse_X0=_pad_designs(coarse_X0, B, pad), mesh=mesh)
+                diags.update({i: m for i, m in sub_d.items() if i < B})
+                cls.last_sweep_diagnostics = diags
+                return out[:B]
+        else:
+            mesh = None
+
         # device-memory guard: split a sweep whose packed filter state
         # would not fit into sub-sweeps
         k_est = min(n_modes_target + scfg.extra_vectors, n)
-        b_max = _designs_per_sweep(dev, dg.elem_dofs.shape[0], Dp, k_est)
+        b_max = _designs_per_sweep(dev, dg.elem_dofs.shape[0], Dp, k_est,
+                                   mesh)
         if B > b_max:
             if any(a is not None for a in (X0, noise, coarse_X0)):
                 raise ValueError("X0/noise/coarse_X0 cannot be split across "
@@ -575,7 +657,7 @@ class TrueVectorialMaxwellSolver:
                 out.extend(cls.solve_sweep(geometries[s:s + b_max], dg,
                                            n_modes_target, cfg,
                                            _raw_modes=_raw_modes,
-                                           diag_out=sub_d))
+                                           diag_out=sub_d, mesh=mesh))
                 for j, m in sub_d.items():
                     diags[s + j] = m
             cls.last_sweep_diagnostics = diags
@@ -590,7 +672,7 @@ class TrueVectorialMaxwellSolver:
             with timer.phase("bootstrap"):
                 boot = cls._bootstrap_sweep(geometries, dg, n_modes_target,
                                             cfg, gen, noise=noise,
-                                            coarse_X0=coarse_X0)
+                                            coarse_X0=coarse_X0, mesh=mesh)
 
         with timer.phase("assemble"):
             ga = grid_to_device(dg, dev)
@@ -674,15 +756,6 @@ class TrueVectorialMaxwellSolver:
                                        correction=scfg.member_correction)
             return hv_cache[bix]
 
-        def _pad_active(idx):
-            """Pad an active-design index list to a power-of-two filter
-            width (at most B), repeating the last active design."""
-            w = 1
-            while w < len(idx):
-                w *= 2
-            w = min(max(w, 1), B)
-            return list(idx) + [idx[-1]] * (w - len(idx))
-
         results = [[] for _ in range(B)]
         # beta_passes is the MINIMUM round count; when >= 2 (accuracy
         # mode) the qres gate may extend up to max_rounds until the
@@ -716,7 +789,7 @@ class TrueVectorialMaxwellSolver:
                     degree=scfg.cheb_degree,
                     passes=cheb_passes_eff, tol=scfg.scalar_tol,
                     parks=parks[sel], n_wanted=n_gate, max_passes=mp,
-                    binv_degree=binv_eff)
+                    binv_degree=binv_eff, mesh=mesh)
             with timer.phase("xfer"):
                 Xr_host = Xr.cpu().numpy()
             beta_new = betas.copy()
@@ -799,7 +872,7 @@ class TrueVectorialMaxwellSolver:
             parks = 10.0 * np.maximum(cuts, 1.0)
             col_of = {bix: j for j, bix in enumerate(sel)}
             active = still
-            sel = _pad_active(active)
+            sel = _pad_active(active, B, mesh)
             cols = torch.as_tensor([col_of[bix] for bix in sel], device=dev)
             Xact = Xr[:, cols, :]
         # the bootstrap's nested solve_sweep re-binds the hooks; restore

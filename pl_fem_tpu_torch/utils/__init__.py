@@ -1,4 +1,4 @@
-"""Utilities: phase timing."""
-from .profiling import PhaseTimer
+"""Utilities: phase timing and device traces."""
+from .profiling import PhaseTimer, device_trace
 
-__all__ = ["PhaseTimer"]
+__all__ = ["PhaseTimer", "device_trace"]

@@ -1,9 +1,11 @@
-"""Phase timers.
+"""Phase timers and device traces.
 
 The reference's observability is wall-clock fields in each record and
 per-module loggers (SURVEY.md §5). This module provides the structured
 equivalent: a PhaseTimer that accumulates named phase durations (fed
-into DatasetRecord timing fields and DEBUG logs).
+into DatasetRecord timing fields and DEBUG logs), and ``device_trace``,
+a ``torch.profiler`` trace of a block of work (viewable in Perfetto or
+TensorBoard).
 """
 from __future__ import annotations
 
@@ -44,3 +46,24 @@ class PhaseTimer:
     def summary(self) -> str:
         return " | ".join(f"{k}={v:.2f}s" for k, v in self.times.items())
 
+
+
+@contextlib.contextmanager
+def device_trace(log_dir):
+    """Trace the enclosed block with ``torch.profiler`` (host activity,
+    and the CUDA kernels where a CUDA device is present) and write it as
+    a Chrome trace (``*.pt.trace.json``) under ``log_dir``. Yields the
+    profiler. A long process can lose part of the device records
+    (torch.profiler's buffers), so trace device times in a fresh one."""
+    import torch
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(str(log_dir))) \
+            as prof:
+        yield prof
+    logger.info("device trace written to %s", log_dir)

@@ -1350,3 +1350,143 @@ def test_rayleigh_ritz_linalg_from_two_threads(dev):
     assert not any(t.is_alive() for t in threads)
     assert errors == []
     assert min(rounds) > 0
+
+
+# ---------------------------------------------------------------------------
+# the design split of a sweep (solve_sweep(mesh=))
+# ---------------------------------------------------------------------------
+
+def _neff_rel(ref, out):
+    worst = 0.0
+    for mr, mo in zip(ref, out, strict=True):
+        assert len(mo) == len(mr) > 0
+        ne_r = np.array([m["n_eff"] for m in mr])
+        ne_o = np.array([m["n_eff"] for m in mo])
+        worst = max(worst, float(np.abs(ne_o - ne_r).max() / ne_r.max()))
+    return worst
+
+
+@pytest.fixture
+def slices_seen(dev, monkeypatch):
+    """Each Rayleigh-Ritz a split sweep runs (one per slice and pass): the
+    device its input lies on, the current CUDA device at the call, and
+    the devices of its outputs; the current device is checked restored
+    after the test."""
+    seen = []
+    rr = tk.cheb_sweep_rr_impl
+
+    def rr_seen(qs, gs, mask, parks, betas, alpha, Xff, *a, **kw):
+        cur = torch.cuda.current_device()
+        out = rr(qs, gs, mask, parks, betas, alpha, Xff, *a, **kw)
+        seen.append((Xff.device, cur, Xff.shape[1],
+                     {t.device for t in out}))
+        return out
+
+    before = torch.cuda.current_device()
+    monkeypatch.setattr(tk, "cheb_sweep_rr_impl", rr_seen)
+    yield seen
+    assert torch.cuda.current_device() == before
+
+
+def _slices_on_their_devices(seen, mesh, width):
+    """Every slice's Rayleigh-Ritz ran with its device current, on
+    ``width`` designs, and left its outputs there; the slices cycle
+    through the mesh's devices in order."""
+    assert seen and len(seen) % mesh.size == 0
+    for i, (xdev, cur, w, outs) in enumerate(seen):
+        assert xdev == mesh.devices[i % mesh.size]
+        assert cur == xdev.index and w == width and outs == {xdev}
+
+
+def test_split_config1_sweep_on_card(dev, slices_seen):
+    """The config-1 fast sweep (B = 8, bootstrap on, ~60k DOFs) split into
+    two slices of the card equals the unsplit sweep: n_eff within 1e-6
+    relative; each slice's filter and Rayleigh-Ritz run with its device
+    current and leave their outputs there."""
+    from pl_fem_tpu_torch import workloads as wl
+    from pl_fem_tpu_torch.parallel import design_mesh
+    from pl_fem_tpu_torch.solvers import TrueVectorialMaxwellSolver as S
+
+    cfg, _, dg, geoms = wl.config1_sweep()
+    ref = S.solve_sweep(geoms, dg, wl.N_MODES, cfg)
+    slices_seen.clear()
+    mesh = design_mesh(["cuda:0"] * 2)
+    out = S.solve_sweep(geoms, dg, wl.N_MODES, cfg, mesh=mesh)
+    _slices_on_their_devices(slices_seen, mesh, len(geoms) // 2)
+    assert _neff_rel(ref, out) <= 1e-6
+
+
+def _small_sweep(n_designs):
+    from pl_fem_tpu_torch.config import SolverConfig
+
+    geoms = [MCFGeometry(3, 8.0, 1.5, 1.535, 1.0, wavelength_um=float(w))
+             for w in np.linspace(1.50, 1.60, n_designs)]
+    mesh = dict(mesh_min_points=400, mesh_target_points=1600,
+                mesh=MeshConfig(bucket_rounding=256))
+    dg = export_device_grid(MeshGenerator.generate(
+        geoms[0], 0.5, SimulationConfig(**mesh)), 256)
+    cfg = SimulationConfig(**mesh, solver=SolverConfig(
+        device="cuda", cheb_degree=50, cheb_passes=2, beta_passes=1,
+        bootstrap=False))
+    k = 6 + cfg.solver.extra_vectors
+    X0 = np.random.default_rng(5).standard_normal(
+        (3 * dg.n_dofs_padded, n_designs, k)).astype(np.float32)
+    return geoms, dg, cfg, X0
+
+
+def test_split_sweep_pads_on_card(dev, slices_seen):
+    """B = 5 over two slices of the card: padded to 6 with the last
+    design, 3 designs a slice, 5 results equal to the unsplit B = 5 sweep
+    from the same start within 1e-6 relative in n_eff."""
+    from pl_fem_tpu_torch.parallel import design_mesh
+    from pl_fem_tpu_torch.solvers import TrueVectorialMaxwellSolver as S
+
+    geoms, dg, cfg, X0 = _small_sweep(5)
+    ref = S.solve_sweep(geoms, dg, 6, cfg, X0=X0)
+    slices_seen.clear()
+    mesh = design_mesh(["cuda:0"] * 2)
+    out = S.solve_sweep(geoms, dg, 6, cfg, X0=X0, mesh=mesh)
+    assert len(out) == 5
+    _slices_on_their_devices(slices_seen, mesh, 3)
+    assert _neff_rel(ref, out) <= 1e-6
+
+
+def test_split_sweep_over_cards(dev, slices_seen):
+    """Where more than one card is visible: B = 8 over every card
+    (``design_mesh()``), each slice on its own card with that card
+    current, equal to the unsplit sweep within 1e-6 relative in n_eff."""
+    from pl_fem_tpu_torch.parallel import design_mesh
+    from pl_fem_tpu_torch.solvers import TrueVectorialMaxwellSolver as S
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    geoms, dg, cfg, X0 = _small_sweep(8)
+    ref = S.solve_sweep(geoms, dg, 6, cfg, X0=X0)
+    slices_seen.clear()
+    mesh = design_mesh()
+    out = S.solve_sweep(geoms, dg, 6, cfg, X0=X0, mesh=mesh)
+    assert len({d.index for d in mesh.devices}) == mesh.size > 1
+    _slices_on_their_devices(slices_seen, mesh, -(-8 // mesh.size))
+    assert _neff_rel(ref, out) <= 1e-6
+
+
+@pytest.mark.parametrize("B_,k,D", [(8, 22, 60416), (6, 7, 3000)])
+def test_cheb_step_scale_independent_of_design_count(dev, B_, k, D):
+    """K4's renorm scale of a design is the same bits whether the block
+    holds all B designs or half of them (a split sweep's slice): the lane
+    count L = B * 3 * k takes another divisibility at B / 2, and with L
+    specialized the per-column sums ran in another order (~1e-7 apart at
+    config-1's B = 8, k = 22)."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    W, V, T0 = (torch.randn((D, B_, 3, k), generator=gen, device=dev)
+                for _ in range(3))
+    c = torch.linspace(100, 200, B_, device=dev)
+    h = torch.linspace(900, 1000, B_, device=dev)
+    T2, s = trk.cheb_step(W, V, T0, c, h, renorm=True)
+    b = B_ // 2
+    for lo in (0, b):
+        part = [t[:, lo:lo + b].contiguous() for t in (W, V, T0)]
+        T2h, sh = trk.cheb_step(*part, c[lo:lo + b].contiguous(),
+                                h[lo:lo + b].contiguous(), renorm=True)
+        assert torch.equal(T2h, T2[:, lo:lo + b])
+        assert torch.equal(sh, s[lo:lo + b])

@@ -123,6 +123,10 @@ import pl_fem_tpu_torch.physics
 import pl_fem_tpu_torch.physics.cmt
 import pl_fem_tpu_torch.dataset
 import pl_fem_tpu_torch.cli
+import pl_fem_tpu_torch.parallel
+import pl_fem_tpu_torch.utils
+for name in pl_fem_tpu_torch.__all__:
+    getattr(pl_fem_tpu_torch, name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "pl_fem_tpu"))
 assert not bad, bad
@@ -176,3 +180,29 @@ def test_launchers_set_one_shared_limit():
         text = (csrc / name).read_text()
         assert '#include "shared_limit.cuh"' in text, name
         assert text.count("set_shared_limit(") == 1, name
+
+
+@pytest.mark.parametrize("module", ["", ".solvers", ".utils", ".parallel"])
+def test_port_exports_every_reference_name(module):
+    """Every public name of the JAX package's top level, ``solvers``,
+    ``utils`` and ``parallel`` (their ``__all__``) exists in the port's
+    counterpart, the lazy ones included."""
+    import importlib
+
+    ref = importlib.import_module("pl_fem_tpu" + module)
+    port = importlib.import_module("pl_fem_tpu_torch" + module)
+    missing = [n for n in ref.__all__ if not hasattr(port, n)]
+    assert not missing, missing
+    assert set(ref.__all__) <= set(port.__all__)
+
+
+def test_device_trace_writes_a_trace(tmp_path):
+    """``utils.device_trace`` traces a small block of torch work on the
+    CPU and leaves a Chrome trace under its directory."""
+    from pl_fem_tpu_torch.utils import device_trace
+
+    with device_trace(tmp_path / "trace") as prof:
+        torch.ones(64, 64) @ torch.ones(64, 64)
+    assert prof is not None
+    files = list((tmp_path / "trace").glob("*.pt.trace.json"))
+    assert len(files) == 1 and files[0].stat().st_size > 0
