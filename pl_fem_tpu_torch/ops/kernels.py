@@ -17,8 +17,10 @@ recurrence step (K4). The Rayleigh-Ritz keeps the fused layout: the
 per-design QR, the Grams, the small dense eigenproblem and the Ritz
 vectors are ``torch.linalg`` and batched GEMMs on the fused rows, and
 the residual norms with the pass gate are K10 (``ritz_residual``), so a
-pass reads one scalar on the host. The bootstrap seed is K9
-(``seed_prolong``), written straight into the fused layout.
+pass reads one scalar on the host. Each pass, its read of the gate
+included, is a profiler span ``pl_fem.rr_pass`` (``utils.span``). The
+bootstrap seed is K9 (``seed_prolong``), written straight into the
+fused layout.
 ``_apply_mass_fused_plain`` and ``_apply_binv_fused_plain`` keep the
 unfused form of the mass path as the reference the kernel is held
 against; ``seed_prolong_plain`` and ``ritz_residual_plain`` are K9's and
@@ -49,6 +51,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .assembly import (ApplyPlan, MassPlan, quadrature_primitives,
                        vector3_stacked_A)
 from .cuda_kernels import (BinvStep, accumulate, apply_stacked,
@@ -607,36 +610,37 @@ def solve_lowest_sweep(qs: QFactorSweep, gs, mask, diag_B, X0, cuts, betas,
     theta = res = None
     prev = np.inf
     for ip in range(max_passes):
-        t0 = time.perf_counter()
-        filtered = []
-        for p in parts:
-            with _on_device(p.dev):
-                filtered.append(cheb_sweep_filter(
-                    p.qs, p.gs, p.mask, p.dinv_sqrt, lo, hi, p.parks,
-                    p.betas, float(alpha), p.Xf, p.cuts, p.bounds,
-                    degree=degree, binv_degree=binv_degree))
-        outs = []
-        for p, Xff in zip(parts, filtered):
-            with _on_device(p.dev):
-                outs.append(cheb_sweep_rr_impl(
-                    p.qs, p.gs, p.mask, p.parks, p.betas, float(alpha), Xff,
-                    p.cuts, n_wanted=n_wanted))
-            p.Xf = outs[-1][1]
-        del filtered
-        if len(parts) == 1:
-            theta, _, res, gate = outs[0]
-        else:
-            theta, res, gate = _split_gate([o[0] for o in outs],
-                                           [o[2] for o in outs], cuts,
-                                           n_wanted, dev)
-        if ip + 1 >= passes:
-            maxres = float(gate)
-            _log.debug("sweep pass %d (deg %d, binv %d, %d slices): %.2fs "
-                       "maxres=%.2e", ip, degree, binv_degree, len(parts),
-                       time.perf_counter() - t0, maxres)
-            if maxres < eff_tol or maxres > 0.7 * prev:
-                break
-            prev = maxres
+        with span("rr_pass"):
+            t0 = time.perf_counter()
+            filtered = []
+            for p in parts:
+                with _on_device(p.dev):
+                    filtered.append(cheb_sweep_filter(
+                        p.qs, p.gs, p.mask, p.dinv_sqrt, lo, hi, p.parks,
+                        p.betas, float(alpha), p.Xf, p.cuts, p.bounds,
+                        degree=degree, binv_degree=binv_degree))
+            outs = []
+            for p, Xff in zip(parts, filtered):
+                with _on_device(p.dev):
+                    outs.append(cheb_sweep_rr_impl(
+                        p.qs, p.gs, p.mask, p.parks, p.betas, float(alpha),
+                        Xff, p.cuts, n_wanted=n_wanted))
+                p.Xf = outs[-1][1]
+            del filtered
+            if len(parts) == 1:
+                theta, _, res, gate = outs[0]
+            else:
+                theta, res, gate = _split_gate([o[0] for o in outs],
+                                               [o[2] for o in outs], cuts,
+                                               n_wanted, dev)
+            if ip + 1 >= passes:
+                maxres = float(gate)
+                _log.debug("sweep pass %d (deg %d, binv %d, %d slices): %.2fs "
+                           "maxres=%.2e", ip, degree, binv_degree, len(parts),
+                           time.perf_counter() - t0, maxres)
+                if maxres < eff_tol or maxres > 0.7 * prev:
+                    break
+                prev = maxres
     Xf = parts[0].Xf if len(parts) == 1 else \
         torch.cat([p.Xf.to(dev) for p in parts], dim=1)
     return theta, _stacked_from_fused(Xf), res
@@ -864,17 +868,18 @@ def solve_lowest_kernel(Abig, Bblk, gs, mask, diag_B, X0, cut, elem_valid,
     theta = Xr = res = None
     prev = np.inf
     for ip in range(max_passes):
-        t0 = time.perf_counter()
-        theta, Xr, res, gate = cheb_rr_pass_impl(
-            Abig, w, gs, mask, dinv_sqrt, lo, hi, park, X, cut_t, bound,
-            C=C, degree=degree, binv_degree=binv_degree, n_wanted=n_wanted)
-        X = Xr
-        if ip + 1 >= passes:
-            maxres = float(gate)
-            _log.debug("stacked pass %d (deg %d, binv %d): %.2fs "
-                       "maxres=%.2e", ip, degree, binv_degree,
-                       time.perf_counter() - t0, maxres)
-            if maxres < eff_tol or maxres > 0.7 * prev:
-                break
-            prev = maxres
+        with span("rr_pass"):
+            t0 = time.perf_counter()
+            theta, Xr, res, gate = cheb_rr_pass_impl(
+                Abig, w, gs, mask, dinv_sqrt, lo, hi, park, X, cut_t, bound,
+                C=C, degree=degree, binv_degree=binv_degree, n_wanted=n_wanted)
+            X = Xr
+            if ip + 1 >= passes:
+                maxres = float(gate)
+                _log.debug("stacked pass %d (deg %d, binv %d): %.2fs "
+                           "maxres=%.2e", ip, degree, binv_degree,
+                           time.perf_counter() - t0, maxres)
+                if maxres < eff_tol or maxres > 0.7 * prev:
+                    break
+                prev = maxres
     return theta, Xr, res

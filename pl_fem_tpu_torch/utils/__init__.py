@@ -1,4 +1,4 @@
-"""Utilities: phase timing and device traces."""
-from .profiling import PhaseTimer, device_trace
+"""Utilities: phase timing, profiler spans and device traces."""
+from .profiling import PhaseTimer, device_trace, span
 
-__all__ = ["PhaseTimer", "device_trace"]
+__all__ = ["PhaseTimer", "device_trace", "span"]

@@ -502,6 +502,45 @@ def test_scalar_solve_on_card_matches_cpu(dev):
         assert abs(a["n_eff"] - b["n_eff"]) <= 1e-6 * b["n_eff"]
 
 
+def test_spans_leave_no_device_event(dev):
+    """A scalar solve under ``torch.profiler`` with CUDA activity: the
+    program's spans are host events (the phases, one pl_fem.rr_pass a
+    pass), none a user annotation, and no device-side event carries a
+    pl_fem. name; the kernels are there."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pl_fem_tpu_torch.config import SolverConfig
+    from pl_fem_tpu_torch.solvers import ScalarHelmholtzSolver
+
+    geom = MCFGeometry(1, 8.0, 1.5, 1.53, 1.0, wavelength_um=1.55,
+                       use_complex_pml=False)
+    mesh = dict(mesh_min_points=600, mesh_target_points=2500,
+                mesh=MeshConfig(bucket_rounding=256))
+    dg = export_device_grid(MeshGenerator.generate(
+        geom, 0.4, SimulationConfig(**mesh)), 256)
+    solver = ScalarHelmholtzSolver(geom, SimulationConfig(
+        **mesh, solver=SolverConfig(device="cuda", cheb_degree=60,
+                                    cheb_passes=2)))
+    solver.solve(dg, 8, mode_filter="cascade")            # builds, warms
+    n3 = ck.mass_apply.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        solver.solve(dg, 8, mode_filter="cascade")
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    host = [e for e in prof.events() if e.device_type != cuda
+            and e.name.startswith("pl_fem.")]
+    device = [e.name for e in prof.events() if e.device_type == cuda]
+    names = [e.name[len("pl_fem."):] for e in host]
+    assert sorted(set(names) - {"rr_pass"}) == sorted(
+        solver.last_solve_times)
+    assert names.count("rr_pass") >= 2
+    assert not any(e.is_user_annotation for e in host)
+    assert sum("mass_apply" in n for n in device) == \
+        ck.mass_apply.launches - n3
+    assert not [n for n in device if n.startswith("pl_fem.")]
+
+
 def test_filter_on_card_matches_cpu(setup, dev):
     """Twelve filter steps through K1, K3 and K4 (no K2: the fused apply
     sums its own rows) == the same steps through the twins on the CPU

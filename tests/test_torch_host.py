@@ -198,11 +198,18 @@ def test_port_exports_every_reference_name(module):
 
 def test_device_trace_writes_a_trace(tmp_path):
     """``utils.device_trace`` traces a small block of torch work on the
-    CPU and leaves a Chrome trace under its directory."""
-    from pl_fem_tpu_torch.utils import device_trace
+    CPU and leaves a Chrome trace under its directory, with the
+    program's spans in it (a ``PhaseTimer`` phase here)."""
+    import json
+
+    from pl_fem_tpu_torch.utils import PhaseTimer, device_trace
 
     with device_trace(tmp_path / "trace") as prof:
-        torch.ones(64, 64) @ torch.ones(64, 64)
+        with PhaseTimer().phase("probe"):
+            torch.ones(64, 64) @ torch.ones(64, 64)
     assert prof is not None
     files = list((tmp_path / "trace").glob("*.pt.trace.json"))
     assert len(files) == 1 and files[0].stat().st_size > 0
+    events = json.loads(files[0].read_text())["traceEvents"]
+    assert [e["name"] for e in events
+            if e.get("name", "").startswith("pl_fem.")] == ["pl_fem.probe"]
