@@ -7,7 +7,7 @@ In order:
 
 1. needs CUDA (raises otherwise) and prints the card's name and power
    limit as nvidia-smi reports them;
-2. builds the CUDA kernels (K1-K3, K5, K7-K11) from
+2. builds the CUDA kernels (K1-K3, K5, K7-K12) from
    ``pl_fem_tpu_torch/ops/csrc`` with nvcc, one compiler process per
    source, and prints the build seconds (Triton builds K4 and K6 at
    their first launches in step 3);
@@ -27,7 +27,12 @@ In order:
    L = 1 on the mass diagonal's element terms, as
    ``assembly.mass_diagonal`` feeds it; K3 in plain mode and as B^-1 of
    degree 1 and 4, which must launch it exactly `degree` times and
-   repeat bit for bit; K4's renorm step (T2 unscaled and its scale),
+   repeat bit for bit (the sweep's rows hold more lanes than K12 takes);
+   K12 (``binv_chain``) at the same lanes, off the path, against its
+   plain twin and the four K3 step launches it would replace (bit for
+   bit, or 1e-6 of each entry) and timed beside them (CUDA events and
+   the profiler's device time, its bounds: the function's bytes and the
+   steps' exchange); K4's renorm step (T2 unscaled and its scale),
    plain step and the step after a renorm, and an 18-step recurrence
    with two deferred renorms against the twin's. The scalar path's
    kernels on the same mesh at k = 22: K5 (stacked apply) at C = 1 on
@@ -128,10 +133,11 @@ In order:
 7. solves the scalar Helmholtz modes of the config-1 design (1.55 um)
    on the production mesh with ``ScalarHelmholtzSolver`` (10 modes, fast
    preset), device backend then hybrid (host ARPACK) backend; the two
-   n_eff lists must agree to 5e-5, the kernels K2-K5, K10 and K11 must
+   n_eff lists must agree to 5e-5, the kernels K2-K5 and K10-K12 must
    launch in the device solve (K5 once per A apply: per K4 step and per
    Rayleigh-Ritz pass; K2 only on the mass diagonal; K10 once per pass;
-   K11 once per solve, and the standalone K6, K7 and K8 never); the
+   K11 once per solve, K12 once per K4 step, and the standalone K6, K7
+   and K8 never); the
    assemble phase's seconds are split into upload, plans and kernels on
    fresh device grids; and the single-core fiber's LP01
    must match the exact LP dispersion (ops/analytic.lp_modes) within
@@ -140,10 +146,12 @@ In order:
    --cmt-slices 5`` at configs/r5_dataset.yaml) on 4 of the config's 220
    samples (the one cut): every validated sample must be a
    ``scalar_cascade`` record, at least one must succeed with finite
-   losses, K2-K5, K10 and K11 must launch (K5 once per A apply, K2 only
-   at L = 1, K11 once per solve and K6, K7, K8 never), and a second run
-   must solve nothing; then K5-K8 and K11 against their twins on the
-   dataset's mesh at the run's largest k.
+   losses, K2-K5 and K10-K12 must launch (K5 once per A apply, K2 only
+   at L = 1, K11 once per solve, K12 once per K4 step and K6, K7, K8
+   never), and a second run must solve nothing; then K5-K8, K11 and K12
+   against their twins (K12 also against the K3 step chain, at k, at
+   BINV_LANES lanes and at one lane more) on the dataset's mesh at the
+   run's largest k.
 
 The config-1 and r5 workloads are defined in
 ``pl_fem_tpu_torch/workloads.py``. It prints the per-kernel JSON line,
@@ -273,6 +281,78 @@ def _compare(name, kernel_fn, plain_fn, bound, library_fn=None):
             "library_ms": library_ms}
 
 
+def _k12_checks(X, gs, w, mask, ds, degree, tag):
+    """K12 (``binv_chain``) on one (D, L) block: against its plain twin
+    ``binv_chain_plain`` (the K3 step twins in torch ops) within
+    KERNEL_RTOL of max|y|, and against the chain of ``degree`` K3 step
+    launches it replaces, equal bit for bit (or within 1e-6 of each
+    entry); one launch and no K3 launch, where R and Z live
+    (``binv_on_chip``); times by CUDA events (K12, the twin, the K3
+    chain) and by the profiler's device intervals (K12, the K3 chain),
+    and two bytes bounds of the launch: the function's (W in, the result
+    out, the tables) and the exchange's (also every middle Dd written and
+    read back once, and in device memory R and Z written, read and
+    rewritten)."""
+    import numpy as np
+    import torch
+
+    from pl_fem_tpu_torch.ops import cuda_kernels as ck
+    from pl_fem_tpu_torch.ops import kernels as tkn
+
+    D, L = X.shape
+    E, Q = w.shape
+    N = tkn.shape_table(X.device)
+    theta, a, b = tkn._binv_coefs(np.float32(tkn.MASS_LO),
+                                  np.float32(tkn.MASS_HI), degree)
+    args = (X, gs, w, N, mask, ds, a, b, theta, degree)
+
+    def chain():
+        return ck.binv_chain(*args)
+
+    def k3_chain():
+        return ck.mass_step_chain(ck.mass_apply, *args)
+
+    n3, n12, nc = (ck.mass_apply.launches, ck.binv_chain.launches,
+                   ck.binv_chain.on_chip)
+    y = chain()
+    if (ck.mass_apply.launches, ck.binv_chain.launches) != (n3, n12 + 1):
+        raise AssertionError(f"K12{tag}: not one launch, or a K3 launch")
+    on_chip = ck.binv_chain.on_chip == nc + 1
+    ref = k3_chain()
+    torch.cuda.synchronize()
+    rel = float(((y - ref).abs() / ref.abs().clamp_min(1e-30)).max())
+    if not (torch.equal(y, ref) or rel <= 1e-6):
+        raise AssertionError(f"K12{tag}: {rel:.3e} relative from the K3 "
+                             f"chain (limit 1e-6 of each entry)")
+    if not torch.equal(y, chain()):
+        raise AssertionError(f"K12{tag} is not bitwise repeatable")
+    blk = 4 * D * L
+    tables = 4 * (E * 6 + E * Q + Q * 6 + 2 * D) + 4 * D
+    fn_bytes = 2 * blk + tables
+    ex_bytes = fn_bytes + 2 * (degree - 1) * blk \
+        + (0 if on_chip else 4 * (degree - 1) * blk)
+    row = _compare(f"K12 binv_chain{tag} vs its plain twin", chain,
+                   lambda: ck.binv_chain_plain(*args), (fn_bytes, 0))
+    ms, k3_ms = row["ms"], _event_ms(k3_chain)
+    dev_ms = _device_ms(chain, 1, name="binv_chain")
+    k3_dev_ms = _device_ms(k3_chain, degree, name="mass_apply")
+    fn_ms = fn_bytes / HBM_BYTES_PER_S * 1e3
+    ex_ms = ex_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"  K12 binv_chain{tag} (D={D}, L={L}, degree {degree}, R and Z "
+          f"{'on chip' if on_chip else 'in device memory'}): "
+          f"{'bit-equal' if torch.equal(y, ref) else f'{rel:.2e} rel'} to "
+          f"the K3 chain; events {ms:.4f} ms (K3 chain {k3_ms:.4f} ms, "
+          f"plain twin {row['plain_ms']:.4f} ms); device {dev_ms} ms (K3 "
+          f"chain {k3_dev_ms} ms); bound {fn_ms:.4f} ms function "
+          f"({_share(fn_ms, dev_ms)} of device), {ex_ms:.4f} ms exchange "
+          f"({_share(ex_ms, dev_ms)})", flush=True)
+    return {**row, "device_ms": dev_ms, "k3_chain_ms": k3_ms,
+            "k3_chain_device_ms": k3_dev_ms, "degree": degree, "lanes": L,
+            "on_chip": on_chip, "bit_equal": torch.equal(y, ref),
+            "max_rel_err": rel, "bound_ms": fn_ms, "exchange_bound_ms": ex_ms,
+            "bound_by": "bytes"}
+
+
 def _mass_csr(gs, w, N, mask, park):
     """The assembled f32 CSR of M~ = diag(m) M diag(m) + park diag(1 - m)
     from the element coefficients: the SpMM yardstick beside K3 (the
@@ -356,7 +436,9 @@ def _watch_sweep():
     conversions of ``kernels`` (``_fused_from_stacked``,
     ``_stacked_from_fused``) in all and inside a vectorial
     Rayleigh-Ritz, the scalar solves on the device
-    (``ScalarHelmholtzSolver._solve_device`` calls), record the lane
+    (``ScalarHelmholtzSolver._solve_device`` calls), the B^-1 chains of
+    degree >= 2 (``kernels._binv_steps`` calls) on rows of at most
+    ``BINV_LANES`` lanes and on wider ones, record the lane
     count of
     every K2 launch made through ``kernels``, record each vectorial
     Rayleigh-Ritz's design count, device and current CUDA device
@@ -365,6 +447,7 @@ def _watch_sweep():
     every named phase of every PhaseTimer (``phase_s``: the sweeps'
     ``assemble`` and ``bounds`` among them): the port's own functions,
     wrapped (two sweep threads may call them)."""
+    from pl_fem_tpu_torch.ops import cuda_kernels as ck
     from pl_fem_tpu_torch.ops import kernels as tkn
     from pl_fem_tpu_torch.solvers import scalar as tsc
     from pl_fem_tpu_torch.solvers import vectorial as tvec
@@ -372,12 +455,14 @@ def _watch_sweep():
 
     seen = {"rr_passes": 0, "stacked_passes": 0, "sweeps": 0, "boots": 0,
             "scalar_solves": 0, "conversions": 0, "rr_conversions": 0,
-            "k2_lanes": set(), "phase_s": {}, "rr_slices": []}
+            "k2_lanes": set(), "phase_s": {}, "rr_slices": [],
+            "short_chains": 0, "wide_chains": 0}
     lock = threading.Lock()
     in_rr = threading.local()
     rr, srr = tkn.cheb_sweep_rr_impl, tkn.cheb_rr_pass_impl
     f2s, s2f = tkn._fused_from_stacked, tkn._stacked_from_fused
     acc = tkn.accumulate
+    steps = tkn._binv_steps
     solver = tvec.TrueVectorialMaxwellSolver
     sweep = solver.__dict__["solve_sweep"]
     boot = solver.__dict__["_bootstrap_sweep"]
@@ -406,6 +491,13 @@ def _watch_sweep():
         with lock:
             seen["k2_lanes"].add(Ye.shape[-1])
         return acc(Ye, *args, **kw)
+
+    def steps_seen(w, gs, mask, ds, lo, hi, Xl, degree):
+        if degree > 1:
+            short = Xl.shape[1] <= ck.BINV_LANES
+            with lock:
+                seen["short_chains" if short else "wide_chains"] += 1
+        return steps(w, gs, mask, ds, lo, hi, Xl, degree)
 
     def rr_seen(*args, **kw):
         import torch
@@ -441,6 +533,7 @@ def _watch_sweep():
     tkn._fused_from_stacked = conversion(f2s)
     tkn._stacked_from_fused = conversion(s2f)
     tkn.accumulate = acc_seen
+    tkn._binv_steps = steps_seen
     solver.solve_sweep = classmethod(counted(sweep.__func__, "sweeps"))
     solver._bootstrap_sweep = classmethod(boot_seen)
     tsc.ScalarHelmholtzSolver._solve_device = counted(ssolve, "scalar_solves")
@@ -451,6 +544,7 @@ def _watch_sweep():
         tkn.cheb_sweep_rr_impl, tkn.cheb_rr_pass_impl = rr, srr
         tkn._fused_from_stacked, tkn._stacked_from_fused = f2s, s2f
         tkn.accumulate = acc
+        tkn._binv_steps = steps
         solver.solve_sweep = sweep
         solver._bootstrap_sweep = boot
         tsc.ScalarHelmholtzSolver._solve_device = ssolve
@@ -492,7 +586,11 @@ def _check_scalar_launches(what, launches, seen):
     print(f"{what}: {seen['scalar_solves']} scalar solves on the device; "
           f"K11 launches {n11}; standalone K6 / K7 / K8 launches "
           f"{old['eps_at_quadrature']} / {old['scalar_blocks']} / "
-          f"{old['pencil_bounds']}", flush=True)
+          f"{old['pencil_bounds']}; K12 launches {launches['binv_chain']} "
+          f"for {launches['cheb_step']} K4 steps", flush=True)
+    if launches["binv_chain"] != launches["cheb_step"]:
+        raise AssertionError(f"{what}: B^-1 did not run as one K12 launch "
+                             f"per filter step")
     if not seen["scalar_solves"] or n11 != seen["scalar_solves"]:
         raise AssertionError(f"{what}: K11 did not launch once per scalar "
                              f"solve")
@@ -505,7 +603,11 @@ def _check_apply_launches(what, launches, seen):
     """Every K4 step follows one A apply, and every Rayleigh-Ritz pass
     makes one: K1 (the vectorial sweeps) and K5 (the stacked filter)
     launch once per apply, K1 + K5 = K4 steps + passes; K2 only sums the
-    mass diagonal (L = 1), never per filter step."""
+    mass diagonal (L = 1), never per filter step. K12 launches once per
+    B^-1 chain of degree >= 2 on rows of at most BINV_LANES lanes (the
+    scalar filter's), never on wider rows (the vectorial sweep's)."""
+    from pl_fem_tpu_torch.ops import cuda_kernels as ck
+
     n1, n5, n4 = (launches["apply_vector3"], launches["apply_stacked"],
                   launches["cheb_step"])
     rr, srr = seen["rr_passes"], seen["stacked_passes"]
@@ -522,6 +624,13 @@ def _check_apply_launches(what, launches, seen):
     if seen["k2_lanes"] - {1}:
         raise AssertionError(f"{what}: K2 launched on lane blocks (the "
                              f"filter's), not only on the mass diagonal")
+    print(f"{what}: K12 launches {launches['binv_chain']} for "
+          f"{seen['short_chains']} B^-1 chains of at most {ck.BINV_LANES} "
+          f"lanes; {seen['wide_chains']} wider chains on K3 steps",
+          flush=True)
+    if launches["binv_chain"] != seen["short_chains"]:
+        raise AssertionError(f"{what}: K12 did not launch once per B^-1 "
+                             f"chain of at most {ck.BINV_LANES} lanes")
 
 
 def _check_seed_rr_launches(what, launches, seen, before=None):
@@ -675,14 +784,16 @@ def _kernel_checks(dg, geoms, k, dev):
     y = tkn._apply_mass_fused(qs, gs, mask, X, 50.0)
     if not torch.equal(y, tkn._apply_mass_fused(qs, gs, mask, X, 50.0)):
         raise AssertionError("K3 plain mode is not bitwise repeatable")
+    # the sweep's rows hold more lanes than K12 takes: B^-1 is `degree`
+    # K3 steps (degree 4 the cold sweeps')
     for degree in (1, 4):
         args = (qs, gs, mask, dinv, lo, hi, X, degree)
-        n0 = ck.mass_apply.launches
+        n0, n12 = ck.mass_apply.launches, ck.binv_chain.launches
         y = tkn._apply_binv_fused(*args)
-        n = ck.mass_apply.launches - n0
-        if n != degree:
+        n = (ck.mass_apply.launches - n0, ck.binv_chain.launches - n12)
+        if n != (degree, 0):
             raise AssertionError(f"B^-1 of degree {degree} launched K3 "
-                                 f"{n} times")
+                                 f"{n[0]} and K12 {n[1]} times")
         if not torch.equal(y, tkn._apply_binv_fused(*args)):
             raise AssertionError(f"B^-1 of degree {degree} is not bitwise "
                                  f"repeatable")
@@ -692,6 +803,9 @@ def _kernel_checks(dg, geoms, k, dev):
             lambda: tkn._apply_binv_fused(*args),
             lambda: tkn._apply_binv_fused_plain(*args),
             (2 * blk + mtab, 0))
+    # K12 at these lanes, off the path: the yardstick of the routing
+    res["binv_chain"] = _k12_checks(X, gs, qs.w, mask, dinv, 4,
+                                    ", off the path")
     res["cheb_step"] = _cheb_checks(W, T1, T0, c, h, gen, "")
     return res
 
@@ -1287,9 +1401,9 @@ def _k11_checks(ga, ea, k2, Linv, tr, A7, B7):
 
 
 def _scalar_kernel_checks(dg, geom, k, dev):
-    """K5-K8 and K11 against their twins on ``dg`` with k columns, and
-    the reused K2, K3, K4 at the scalar solver's shapes; returns {name:
-    row}."""
+    """K5-K8 and K11 against their twins on ``dg`` with k columns, K12
+    against the eight K3 steps it replaces, and the reused K2, K3, K4 at
+    the scalar solver's shapes; returns {name: row}."""
     import numpy as np
     import torch
 
@@ -1506,6 +1620,18 @@ def _scalar_kernel_checks(dg, geom, k, dev):
         lambda: ck.mass_apply_plain(X, gs, ga.qp_w, N, mask1),
         (2 * blk + mtab, 0), lambda: torch.sparse.mm(Mt, X))
     del Mt
+    # K12: the scalar filter's B^-1 (degree 8) against its eight K3 steps,
+    # at k, at the widest rows routed to it (BINV_LANES lanes) and at one
+    # lane more, the first width left to the K3 steps
+    _, _, diag1, _ = ta.assemble_scalar_system(ga, ea, geom.k0)
+    ds1 = 1.0 / torch.sqrt(diag1.clamp_min(1e-30))
+    res["binv_chain"] = _k12_checks(X, gs, ga.qp_w, mask1, ds1, 8,
+                                    ", scalar")
+    for L, key in ((ck.BINV_LANES, "widest"), (ck.BINV_LANES + 1, "past")):
+        XL = torch.randn((D, L), generator=gen, device=dev)
+        res[f"binv_chain_{key}"] = _k12_checks(XL, gs, ga.qp_w, mask1, ds1,
+                                               8, f", {L} lanes")
+        del XL
     W, T1, T0 = (torch.randn((D, 1, 1, k), generator=gen, device=dev)
                  for _ in range(3))
     c = torch.tensor([120.0], device=dev)
@@ -1750,9 +1876,14 @@ def main() -> int:
                 "pencil_bounds_vector3": ck.pencil_bounds_vector3,
                 "seed_prolong": ck.seed_prolong,
                 "ritz_residual": ck.ritz_residual,
-                "scalar_pencil": ck.scalar_pencil}
+                "scalar_pencil": ck.scalar_pencil,
+                "binv_chain": ck.binv_chain}
     # the vectorial paths run K1-K4, the batched K6, K8 from the
-    # quadrature data, K9 and K10; the scalar paths K2-K5, K10 and K11.
+    # quadrature data, K9 and K10 (B^-1 on K3 steps where the fused rows
+    # are wider than K12 takes, as the config-1 sweep's; the dataset's
+    # few-mode sweeps take K12, so it is not required there:
+    # _check_apply_launches holds it to one launch per chain it takes);
+    # the scalar paths K2-K5 and K10-K12.
     # The single-design K6, K7 and K8 on assembled blocks are on no path:
     # they are K11's yardstick
     sweep_only = ("inv_eps_at_quadrature", "pencil_bounds_vector3",
@@ -1761,7 +1892,7 @@ def main() -> int:
     on_vector = ["apply_vector3", "accumulate", "mass_apply", "cheb_step",
                  "ritz_residual", *sweep_only]
     on_scalar = ["accumulate", "mass_apply", "cheb_step", "apply_stacked",
-                 "ritz_residual", "scalar_pencil"]
+                 "ritz_residual", "scalar_pencil", "binv_chain"]
 
     def reset_counts():
         for fn in wrappers.values():
@@ -2156,6 +2287,8 @@ def main() -> int:
                           "pl_fem_tpu/ops/assembly.py:151, "
                           "pl_fem_tpu/ops/assembly.py:327, "
                           "pl_fem_tpu/ops/kernels.py:1120"),
+        "binv_chain": ("cuda", src + "csrc/binv_chain.cu",
+                       "pl_fem_tpu/ops/kernels.py:640"),
     }
     kernels = []
     for name, (route, source, replaces) in meta.items():

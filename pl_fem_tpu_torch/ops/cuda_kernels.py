@@ -10,9 +10,11 @@ the vectorial sweep's bootstrap seed, K10 the Rayleigh-Ritz residual
 norms with the pass gate and K11 the scalar pencil's whole set-up (the
 permittivity, K7's blocks and K8's bound at C = 1 in one launch; the
 scalar path runs it in place of K6, K7 and K8, which stay as its
-yardstick). K8's sweep entry, K9 and K10 take CUDA tensors
-only: their twins live in ``kernels`` beside the functions that compose
-them, which pick the twin on the CPU.
+yardstick), and K12 the B^{-1} semi-iteration of degree >= 2 (K3's step
+chain) in one cooperative launch, on rows of at most BINV_LANES lanes.
+K8's sweep entry, K9 and K10 take CUDA tensors only: their twins live in
+``kernels`` beside the functions that compose them, which pick the twin
+on the CPU.
 
 The sources are ``ops/csrc/*.cu``. At first use on a CUDA tensor they
 are compiled with ``nvcc`` for ``sm_90a`` (one compiler process per
@@ -40,6 +42,7 @@ The (Q, 6) shape table ``N`` comes from ``ops/quadrature.py`` via
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import os
 import subprocess
@@ -80,6 +83,10 @@ _SIGNATURES = {
     "pl_ritz_residual": [_P] * 5 + [_I] * 5 + [_P] * 4,
     "pl_scalar_pencil": [_P] * 8 + [_F, _P, _P, _F, _F] + [_I] * 3
                         + [_P] * 6,
+    "pl_binv_chain": [_P] * 17 + [ctypes.POINTER(_F)] * 2 + [_F]
+                     + [_I] * 7 + [_P],
+    "pl_binv_chain_limits": [_I] * 4 + [ctypes.POINTER(_I),
+                                        ctypes.POINTER(ctypes.c_longlong)],
 }
 _LIB: Optional[ctypes.CDLL] = None
 _LOCK = threading.Lock()
@@ -525,6 +532,143 @@ def mass_apply(X, gs, w, N, mask, park: float = 1.0,
 
 
 mass_apply.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K12: the B^{-1} semi-iteration's step chain in one launch
+# ---------------------------------------------------------------------------
+
+# The widest rows a B^{-1} chain runs K12 on: up to 32 lanes a row is
+# summed by one quarter warp (8 threads of 4 lanes), so a block's 32 rows
+# take one pass of a CTA. There K12 took 0.45-0.92x the K3 step chain's
+# device time on the H100 (22-32 lanes, config-1 and r5 meshes); from 33
+# lanes on it took 0.99-1.7x on the r5 mesh and at 33-40 lanes on
+# config-1, so wider chains stay K3 steps (PERF.md, section 6).
+BINV_LANES = 32
+
+
+def binv_on_chip(D: int, L: int, n_sm: int, shared: int) -> bool:
+    """Where K12 keeps R and Z: in shared memory when those of the rows
+    one CTA an SM owns (the mass plan's blocks of MASS_ROWS rows shared
+    out over ``n_sm`` SMs) fit in ``shared``, the bytes such a CTA has
+    left once its halo staging and one block record are in (what
+    :func:`_card_limits` reads from ``pl_binv_chain_limits``); else in
+    device memory. Exactly the test by which K12's launcher finds a
+    layout with one CTA an SM, so an on-chip launch always finds one. A
+    function of the shape and the card alone."""
+    blocks = -(-D // MASS_ROWS)
+    rows = -(-blocks // n_sm) * MASS_ROWS
+    return 2 * 4 * rows * L <= shared
+
+
+@functools.lru_cache(maxsize=64)
+def _card_limits(index: int, H: int, max_ent: int, L: int):
+    """(SM count, shared memory left for R and Z) of CUDA device
+    ``index`` for a chain of L lanes on a plan of H halo rows and
+    ``max_ent`` entries a block."""
+    n_sm, shared = ctypes.c_int(), ctypes.c_longlong()
+    _check(lib().pl_binv_chain_limits(index, H, max_ent, L,
+                                      ctypes.byref(n_sm),
+                                      ctypes.byref(shared)), "binv_chain")
+    return n_sm.value, shared.value
+
+
+def mass_step_chain(apply, X, gs, w, N, mask, ds, a_coefs, b_coefs, theta,
+                    degree: int):
+    """The B^{-1} semi-iteration as ``degree`` step-mode calls of
+    ``apply`` (:func:`mass_apply`, one K3 launch a step, or its twin
+    :func:`mass_apply_plain`), step i with ``a_coefs[i]`` and
+    ``b_coefs[i]`` (see :class:`BinvStep`); R and Z in two buffers of
+    X's shape, updated in place (none at degree 1)."""
+    R = Z = None
+    if degree > 1:
+        R = torch.empty_like(X)
+        Z = torch.empty_like(X)
+    V = X
+    for i in range(degree):
+        V = apply(V, gs, w, N, mask, step=BinvStep(
+            ds, R, Z, a_coefs[i], b_coefs[i], theta, first=i == 0,
+            last=i == degree - 1))
+    return V
+
+
+def binv_chain_plain(X, gs, w, N, mask, ds, a_coefs, b_coefs, theta,
+                     degree: int):
+    """Plain twin of K12: the chain of ``degree`` K3 step twins."""
+    return mass_step_chain(mass_apply_plain, X, gs, w, N, mask, ds, a_coefs,
+                           b_coefs, theta, degree)
+
+
+def binv_chain(X, gs, w, N, mask, ds, a_coefs, b_coefs, theta,
+               degree: int):
+    """K12 (``csrc/binv_chain.cu``): the Chebyshev B^{-1} semi-iteration
+    of ``degree`` >= 2 steps in one cooperative launch, equal bit for bit
+    to ``degree`` K3 launches in step mode (step i with ``a_coefs[i]``
+    and ``b_coefs[i]``; see :class:`BinvStep`).
+
+    X (D, L) f32; ``gs``, w, N and mask as for :func:`mass_apply`; ds
+    (D,) the Jacobi scale. R and Z stay in shared memory where
+    :func:`binv_on_chip` says they fit (such launches are counted in
+    ``binv_chain.on_chip`` too), else in two device buffers. Returns a
+    new (D, L) tensor.
+    """
+    if degree < 2 or len(a_coefs) != degree or len(b_coefs) != degree:
+        raise ValueError(f"the chain takes degree >= 2 and one (a, b) a "
+                         f"step, got degree {degree}, {len(a_coefs)} a "
+                         f"and {len(b_coefs)} b")
+    if X.device.type == "cpu":
+        return binv_chain_plain(X, gs, w, N, mask, ds, a_coefs, b_coefs,
+                                theta, degree)
+    dev = X.device
+    D, L = X.shape
+    E = gs.elem_dofs.shape[0]
+    Q = w.shape[1]
+    pl = gs.plan
+    NB, H = pl.halo.shape
+    n_ent = pl.ent.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    _require(X, "X", f32, dev)
+    _require_lanes(X, "X", L)
+    _require(w, "w", f32, dev, (E, Q))
+    _require(N, "N", f32, dev, (Q, 6))
+    _require(pl.order, "plan.order", i32, dev, (D,))
+    _require(pl.halo, "plan.halo", i32, dev)
+    _require(pl.n_halo, "plan.n_halo", i32, dev, (NB,))
+    if NB != -(-D // MASS_ROWS):
+        raise ValueError(f"plan of {NB} blocks does not cover {D} rows")
+    _require(pl.row_ptr, "plan.row_ptr", i32, dev, (NB * MASS_ROWS + 1,))
+    _require(pl.ent, "plan.ent", i32, dev)
+    _require(pl.loc, "plan.loc", torch.int16, dev, (n_ent, 6))
+    _require(mask, "mask", f32, dev, (D,))
+    _require(ds, "ds", f32, dev, (D,))
+    on_chip = binv_on_chip(D, L, *_card_limits(dev.index, H,
+                                                int(pl.max_entries), L))
+    # the kernel's own scratch: U of even and odd steps and Dd, rows of
+    # L rounded up to 4 lanes; R and Z where they are not kept on chip
+    Lp = -(-L // 4) * 4
+    U = torch.empty((3, D, Lp), dtype=f32, device=dev)
+    RZ = None if on_chip else torch.empty((2, D, L), dtype=f32, device=dev)
+    out = torch.empty((D, L), dtype=f32, device=dev)
+    coefs = [(_F * degree)(*map(float, c)) for c in (a_coefs, b_coefs)]
+    rc = lib().pl_binv_chain(
+        X.data_ptr(), w.data_ptr(), N.data_ptr(),
+        pl.order.data_ptr(), pl.halo.data_ptr(), pl.n_halo.data_ptr(),
+        pl.row_ptr.data_ptr(), pl.ent.data_ptr(), pl.loc.data_ptr(),
+        mask.data_ptr(), ds.data_ptr(), U[0].data_ptr(), U[1].data_ptr(),
+        U[2].data_ptr(), out.data_ptr(),
+        None if on_chip else RZ[0].data_ptr(),
+        None if on_chip else RZ[1].data_ptr(), *coefs, float(theta), D, H,
+        int(pl.max_entries), Q, L, degree, int(on_chip), _stream(dev))
+    _check(rc, "binv_chain")
+    _count(binv_chain)
+    if on_chip:
+        with _LOCK:
+            binv_chain.on_chip += 1
+    return out
+
+
+binv_chain.launches = 0
+binv_chain.on_chip = 0
 
 
 # ---------------------------------------------------------------------------

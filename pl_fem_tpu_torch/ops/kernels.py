@@ -12,8 +12,10 @@ the filter interval and the park value vary per design.
 Every filter step runs three hand-written kernels (``cuda_kernels`` K1
 and K3, ``triton_kernels`` K4): the packed A(beta_b) apply with its
 mask and park, element math and accumulate in one launch (K1), the
-fused mass apply, one launch per degree step of B^{-1} (K3), and the
-recurrence step (K4). The Rayleigh-Ritz keeps the fused layout: the
+fused mass apply, one launch per degree step of B^{-1} (K3; one K12
+launch of every step where the fused rows hold at most ``BINV_LANES``
+lanes), and the recurrence step (K4).
+The Rayleigh-Ritz keeps the fused layout: the
 per-design QR, the Grams, the small dense eigenproblem and the Ritz
 vectors are ``torch.linalg`` and batched GEMMs on the fused rows, and
 the residual norms with the pass gate are K10 (``ritz_residual``), so a
@@ -29,10 +31,11 @@ K10's twins.
 The stacked form (``_apply_stacked`` .. ``solve_lowest_kernel``) applies
 a C-component operator from its assembled (E, 6C, 6C) element blocks to
 the component-major block (C D, k): K5 (``apply_stacked``) for the
-whole apply with its mask and park in one launch, K3 once per component
-and degree step for B^{-1}, K4 for the recurrence on the block viewed as
-(C D, 1, 1, k), K10 for its residuals and gate on the block viewed as
-(C D, 1, 1, k). C = 1 is the scalar pencil. The spectrum bound the
+whole apply with its mask and park in one launch, K12 once per
+component for B^{-1} (all its degree steps in one launch; K3 once a
+step where k exceeds ``BINV_LANES``), K4 for the recurrence on the block
+viewed as (C D, 1, 1, k), K10 for its residuals and gate on the block
+viewed as (C D, 1, 1, k). C = 1 is the scalar pencil. The spectrum bound the
 scalar pencil starts from comes with its assembly (K11); otherwise it
 is K8: ``pencil_bounds_elem`` on assembled blocks, and
 ``pencil_bounds_sweep`` from the quadrature factors of all designs of a
@@ -54,10 +57,11 @@ import torch
 from ..utils.profiling import span
 from .assembly import (ApplyPlan, MassPlan, quadrature_primitives,
                        vector3_stacked_A)
-from .cuda_kernels import (BinvStep, accumulate, apply_stacked,
-                           apply_vector3, mass_apply, mass_apply_plain,
-                           pencil_bounds, pencil_bounds_plain,
-                           pencil_bounds_vector3, ritz_residual)
+from .cuda_kernels import (BINV_LANES, accumulate, apply_stacked,
+                           apply_vector3, binv_chain, mass_apply,
+                           mass_apply_plain, mass_step_chain, pencil_bounds,
+                           pencil_bounds_plain, pencil_bounds_vector3,
+                           ritz_residual)
 from .quadrature import RULES, p2_shape
 from .triton_kernels import cheb_step
 
@@ -248,36 +252,43 @@ def _apply_binv_fused_plain(qs: QFactorSweep, gs: GatherScatter, mask,
 
 def _apply_binv_fused(qs: QFactorSweep, gs: GatherScatter, mask, dinv_sqrt,
                       lo, hi, Xl, degree: int):
-    """The same semi-iteration as ``degree`` K3 launches in step mode
-    (``_binv_steps`` on the sweep's quadrature weights)."""
+    """The same semi-iteration through the kernels (``_binv_steps`` on
+    the sweep's quadrature weights)."""
     return _binv_steps(qs.w, gs, mask, dinv_sqrt, lo, hi, Xl, degree)
+
+
+def _binv_coefs(lo, hi, degree: int):
+    """theta and the per-step (a, b) of the semi-iteration: step i forms
+    Dd' = a_i V + b_i R'."""
+    theta, delta, sigma1 = _binv_constants(lo, hi)
+    a, b = [], []
+    rho = 1.0 / sigma1
+    for _ in range(degree):
+        rho_new = 1.0 / (2.0 * sigma1 - rho)
+        a.append(rho_new * rho)
+        b.append(2.0 * rho_new / delta)
+        rho = rho_new
+    return theta, a, b
 
 
 def _binv_steps(w, gs: GatherScatter, mask, dinv_sqrt, lo, hi, Xl,
                 degree: int):
-    """Chebyshev B^{-1} semi-iteration on a (D, L) block as ``degree`` K3
-    launches in step mode: each fuses the mass apply (weights ``w``
-    (E, Q)) with the step's R, Z and Dd updates, so no torch elementwise
-    op runs between them. Dd ping-pongs between fresh outputs; R and Z
-    are updated in place."""
+    """Chebyshev B^{-1} semi-iteration on a (D, L) block. Each step fuses
+    the mass apply (weights ``w`` (E, Q)) with its R, Z and Dd updates,
+    so no torch elementwise op runs between them. Degree >= 2 on rows of
+    at most ``BINV_LANES`` lanes (the scalar filter's k) is one K12
+    launch (``binv_chain``); otherwise ``degree`` K3 launches in step
+    mode, Dd ping-ponging between fresh outputs."""
     if degree < 1:
         raise ValueError(f"B^-1 degree {degree} < 1 (degree 0 is the "
                          "lumped inverse of _sweep_apply_t)")
-    theta, delta, sigma1 = _binv_constants(lo, hi)
+    theta, a, b = _binv_coefs(lo, hi, degree)
     N = shape_table(Xl.device)
-    R = Z = None
-    if degree > 1:
-        R = torch.empty_like(Xl)
-        Z = torch.empty_like(Xl)
-    V = Xl
-    rho = 1.0 / sigma1
-    for i in range(degree):
-        rho_new = 1.0 / (2.0 * sigma1 - rho)
-        V = mass_apply(V, gs, w, N, mask, step=BinvStep(
-            dinv_sqrt, R, Z, rho_new * rho, 2.0 * rho_new / delta, theta,
-            first=i == 0, last=i == degree - 1))
-        rho = rho_new
-    return V
+    if degree > 1 and Xl.shape[1] <= BINV_LANES:
+        return binv_chain(Xl, gs, w, N, mask, dinv_sqrt, a, b, theta,
+                          degree)
+    return mass_step_chain(mass_apply, Xl, gs, w, N, mask, dinv_sqrt, a, b,
+                           theta, degree)
 
 
 # ---------------------------------------------------------------------------
@@ -762,7 +773,7 @@ def _apply_mass(w, gs: GatherScatter, mask, X, C: int, park: float = 1.0):
 def _apply_binv(w, gs: GatherScatter, mask, dinv_sqrt, lo, hi, X, C: int,
                 degree: int):
     """Chebyshev semi-iteration for B^{-1} on the Jacobi-scaled mass,
-    per component of X (C D, k): ``degree`` K3 launches each."""
+    per component of X (C D, k), each through ``_binv_steps``."""
     D = mask.shape[0]
     parts = [_binv_steps(w, gs, mask, dinv_sqrt, lo, hi,
                          X[c * D:(c + 1) * D], degree) for c in range(C)]
@@ -836,7 +847,7 @@ def solve_lowest_kernel(Abig, Bblk, gs, mask, diag_B, X0, cut, elem_valid,
 
     Abig (E, 6C, 6C) and Bblk (E, 6, 6) are the element blocks of the
     pencil (Bblk enters only the spectrum bound; the mass applies build
-    the same blocks from ``w`` (E, Q) inside K3). ``bound`` is the
+    the same blocks from ``w`` (E, Q) inside K3 and K12). ``bound`` is the
     pencil's spectrum bound (0-d) where its assembly gave it (K11 on the
     scalar path); without it ``pencil_bounds_elem`` bounds the blocks
     (K8). X0 (C D, k), a tensor or a numpy array, is moved to the

@@ -129,24 +129,37 @@ def test_mass_diagonal_single_lane(setup, dev):
     assert _rel(ref, diag) <= 1e-5
 
 
+def _k3_chain(*args):
+    """The B^{-1} semi-iteration as ``degree`` K3 launches in step mode,
+    R and Z in device buffers: the chain K12 replaces."""
+    return ck.mass_step_chain(ck.mass_apply, *args)
+
+
 def _check_mass(ga, gs, qs, X, dinv):
-    """K3 against its twins on the card: plain mode, and B^{-1} at degrees
-    1 and 4 through the step mode (one launch per degree); each within
-    1e-5 of max|y| and bitwise repeatable."""
+    """K3 against its twins on the card: plain mode, and B^{-1} at degree
+    1 through the step mode (one K3 launch) and at degree 4 as
+    ``_binv_steps`` routes it: four K3 launches on rows of more than
+    BINV_LANES lanes, else one K12 launch with the K3 step chain's bits;
+    each within 1e-5 of max|y| and bitwise repeatable."""
     mask = ga.interior_mask
     lo, hi = np.float32(tk.MASS_LO), np.float32(tk.MASS_HI)
     y = tk._apply_mass_fused(qs, gs, mask, X, 50.0)
     assert _rel(tk._apply_mass_fused_plain(qs, gs, mask, X, 50.0), y) <= 1e-5
     assert torch.equal(y, tk._apply_mass_fused(qs, gs, mask, X, 50.0))
     for degree in (1, 4):
-        n0 = ck.mass_apply.launches
+        n0, n12 = ck.mass_apply.launches, ck.binv_chain.launches
         y = tk._apply_binv_fused(qs, gs, mask, dinv, lo, hi, X, degree)
-        assert ck.mass_apply.launches == n0 + degree
+        chain = degree > 1 and X.shape[1] <= ck.BINV_LANES
+        assert ck.mass_apply.launches == n0 + (0 if chain else degree)
+        assert ck.binv_chain.launches == n12 + chain
         ref = tk._apply_binv_fused_plain(qs, gs, mask, dinv, lo, hi, X,
                                          degree)
         assert _rel(ref, y) <= 1e-5
         assert torch.equal(y, tk._apply_binv_fused(qs, gs, mask, dinv, lo,
                                                    hi, X, degree))
+        theta, a, b = tk._binv_coefs(lo, hi, degree)
+        assert torch.equal(y, _k3_chain(X, gs, qs.w, tk.shape_table(X.device),
+                                        mask, dinv, a, b, theta, degree))
     torch.cuda.synchronize()
 
 
@@ -458,11 +471,12 @@ def test_scalar_wrappers_refuse_bad_input(setup, scalar_setup, dev):
 
 
 def test_scalar_solve_on_card_matches_cpu(dev):
-    """ScalarHelmholtzSolver.solve on the card (K2-K5, K10, K11) against
+    """ScalarHelmholtzSolver.solve on the card (K2-K5, K10-K12) against
     the same solve through the twins on the CPU from the same start
     block: n_eff within 1e-6 after the host polish; every kernel of the
-    path launches, K5 once per A apply, K11 once and the standalone K6,
-    K7 and K8 not at all."""
+    path launches, K5 once per A apply, K12 once per filter step, K3
+    once per pass, K11 once and the standalone K6, K7 and K8 not at
+    all."""
     from pl_fem_tpu_torch.config import SolverConfig
     from pl_fem_tpu_torch.solvers import ScalarHelmholtzSolver
 
@@ -477,7 +491,7 @@ def test_scalar_solve_on_card_matches_cpu(dev):
     X0 = np.random.default_rng(42).standard_normal(
         (dg.n_dofs_padded, k)).astype(np.float32)
     wrappers = (ck.accumulate, ck.mass_apply, trk.cheb_step,
-                ck.apply_stacked, ck.ritz_residual)
+                ck.apply_stacked, ck.ritz_residual, ck.binv_chain)
     standalone = (trk.eps_at_quadrature, ck.scalar_blocks, ck.pencil_bounds)
     before = [f.launches for f in wrappers]
     before_sa = [f.launches for f in standalone]
@@ -494,6 +508,10 @@ def test_scalar_solve_on_card_matches_cpu(dev):
     n5 = ck.apply_stacked.launches - before[3]
     assert n4 % skw["cheb_degree"] == 0
     assert n5 == n4 + n4 // skw["cheb_degree"]
+    # B^{-1} once per filter step, all its degree steps in one K12 launch
+    # (R and Z on chip at this size); K3 only in the Rayleigh-Ritz
+    assert ck.binv_chain.launches - before[5] == n4
+    assert ck.mass_apply.launches - before[1] == n4 // skw["cheb_degree"]
     on_cpu = ScalarHelmholtzSolver(geom, SimulationConfig(
         **mesh, solver=SolverConfig(device="cpu", **skw))).solve(dg, 8,
                                                                  X0=X0)
@@ -871,6 +889,192 @@ def test_row_owned_kernels_from_two_threads(setup, scalar_setup, dev):
     assert not any(t.is_alive() for t in threads)
     assert errors == []
     assert rounds == [2000, 2000]
+    assert [int(d) for d in differ] == [0, 0]
+
+
+# ---------------------------------------------------------------------------
+# K12: the B^{-1} semi-iteration's step chain in one cooperative launch
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mesh,L,degree,on_chip", [
+    ("config1", 22, 8, True),        # the scalar filter's chain
+    ("config1", 22, 2, True),
+    ("config1", 528, 4, False),      # the config-1 sweep, B = 8, k = 22
+    ("r5", 27, 8, False),            # the r5 scalar mesh at k = 27
+    ("r5", 630, 4, False),           # the r5 sweep, B = 5, k = 42
+    ("setup", 63, 4, True),          # the small mesh, odd lanes
+    ("setup", 60, 4, True),          # a chunk of 15 summing threads a row
+    ("setup", 64, 3, True),
+])
+def test_binv_chain(request, dev, mesh, L, degree, on_chip):
+    """K12 against the K3 step chain on the card, bit for bit, where R
+    and Z stay on chip and where they live in device memory (as
+    ``binv_on_chip`` decides, counted in ``binv_chain.on_chip``): one
+    launch, no K3 launch, bitwise repeatable, the input left as it was,
+    and within 1e-5 of max|y| of the unfused plain twin."""
+    m = request.getfixturevalue(mesh)
+    ga, gs = m["ga"], m["gs"]
+    w = {"r5": lambda: m["invs"][0].w, "config1": lambda: m["qf"].w,
+         "setup": lambda: m["qs"].w}[mesh]()
+    diag = m["diag"] if mesh != "setup" else None
+    dinv = 1.0 / torch.sqrt(diag) if diag is not None else _dinv(ga, dev)
+    mask = ga.interior_mask
+    D = mask.shape[0]
+    N = tk.shape_table(dev)
+    g = torch.Generator(device=dev).manual_seed(L * 10 + degree)
+    X = torch.randn((D, L), generator=g, device=dev)
+    X0 = X.clone()
+    lo, hi = np.float32(tk.MASS_LO), np.float32(tk.MASS_HI)
+    theta, a, b = tk._binv_coefs(lo, hi, degree)
+    n_sm, shared = ck._card_limits(dev.index or 0, gs.plan.halo.shape[1],
+                                   int(gs.plan.max_entries), L)
+    assert ck.binv_on_chip(D, L, n_sm, shared) is on_chip
+    n3, n12, nc = (ck.mass_apply.launches, ck.binv_chain.launches,
+                   ck.binv_chain.on_chip)
+    y = ck.binv_chain(X, gs, w, N, mask, dinv, a, b, theta, degree)
+    assert (ck.mass_apply.launches, ck.binv_chain.launches,
+            ck.binv_chain.on_chip) == (n3, n12 + 1, nc + on_chip)
+    ref = _k3_chain(X, gs, w, N, mask, dinv, a, b, theta, degree)
+    assert torch.equal(y, ref)
+    assert torch.equal(y, ck.binv_chain(X, gs, w, N, mask, dinv, a, b,
+                                        theta, degree))
+    assert torch.equal(X, X0)
+    qs = tk.QFactorSweep(invJT=None, w=w, inv_eps=None, gp=None)
+    plain = tk._apply_binv_fused_plain(qs, gs, mask, dinv, lo, hi, X, degree)
+    assert _rel(plain, y) <= 1e-5
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("mesh", ["setup", "config1"])
+def test_binv_on_chip_agrees_with_the_launcher(request, dev, mesh):
+    """``binv_on_chip``, on what ``pl_binv_chain_limits`` reports, and
+    the launcher's own layout search agree: at the most lanes the rule
+    keeps on chip the launch finds a layout with R and Z in shared
+    memory, one lane more goes to device memory, and both give the K3
+    step chain's bits."""
+    m = request.getfixturevalue(mesh)
+    ga, gs = m["ga"], m["gs"]
+    w = m["qs"].w if mesh == "setup" else m["qf"].w
+    dinv = _dinv(ga, dev) if mesh == "setup" else 1.0 / torch.sqrt(m["diag"])
+    mask = ga.interior_mask
+    D = mask.shape[0]
+    H, ent = gs.plan.halo.shape[1], int(gs.plan.max_entries)
+
+    def on_chip(L):
+        return ck.binv_on_chip(D, L, *ck._card_limits(dev.index or 0, H, ent,
+                                                       L))
+
+    top = max((L for L in range(1, 4097) if on_chip(L)), default=0)
+    assert 22 <= top < 4096 and not on_chip(top + 1)
+    N = tk.shape_table(dev)
+    theta, a, b = tk._binv_coefs(np.float32(tk.MASS_LO),
+                                 np.float32(tk.MASS_HI), 2)
+    g = torch.Generator(device=dev).manual_seed(top)
+    for L, kept in ((top, 1), (top + 1, 0)):
+        X = torch.randn((D, L), generator=g, device=dev)
+        nc = ck.binv_chain.on_chip
+        y = ck.binv_chain(X, gs, w, N, mask, dinv, a, b, theta, 2)
+        assert ck.binv_chain.on_chip == nc + kept
+        assert torch.equal(y, _k3_chain(X, gs, w, N, mask, dinv, a, b,
+                                        theta, 2))
+    torch.cuda.synchronize()
+
+
+def test_binv_chain_refuses_bad_input(setup, dev):
+    """K12 takes f32 CUDA tensors on one device, contiguous, the lanes
+    on their boundary, a plan and mask of X's rows, degree >= 2 with one
+    (a, b) a step; anything else raises before a launch."""
+    s = setup
+    gs, w, mask = s["gs"], s["qs"].w, s["ga"].interior_mask
+    N = tk.shape_table(dev)
+    D = mask.shape[0]
+    ds = _dinv(s["ga"], dev)
+    X = torch.randn((D, 12), generator=s["gen"], device=dev)
+    theta, a, b = tk._binv_coefs(np.float32(tk.MASS_LO),
+                                 np.float32(tk.MASS_HI), 4)
+    n12 = ck.binv_chain.launches
+
+    def call(X=X, w=w, mask=mask, ds=ds, a=a, b=b, degree=4):
+        return ck.binv_chain(X, gs, w, N, mask, ds, a, b, theta, degree)
+
+    with pytest.raises(TypeError):
+        call(X=X.double())
+    with pytest.raises(ValueError):             # not contiguous
+        call(X=torch.zeros((12, D), device=dev).t())
+    with pytest.raises(ValueError):             # not on a 16-byte boundary
+        call(X=torch.zeros((D * 12 + 1,), device=dev)[1:].view(D, 12))
+    with pytest.raises(ValueError):             # a mask of other rows
+        call(mask=mask[:-1].contiguous())
+    with pytest.raises(ValueError):             # rows the plan does not own
+        call(X=X[:-1].contiguous(), mask=mask[:-1].contiguous(),
+             ds=ds[:-1].contiguous())
+    with pytest.raises(ValueError):             # the scale on the host
+        call(ds=ds.cpu())
+    with pytest.raises(ValueError):             # weights on the host
+        call(w=w.cpu())
+    with pytest.raises(TypeError):
+        call(ds=ds.double())
+    with pytest.raises(ValueError):             # degree 1 is one K3 step
+        call(a=a[:1], b=b[:1], degree=1)
+    with pytest.raises(ValueError):             # one (a, b) a step
+        call(b=b[:3])
+    assert ck.binv_chain.launches == n12
+
+
+def test_binv_chain_from_two_threads(setup, config1, dev):
+    """K12 launched by two threads at once, 300 times each, one on the
+    config-1 mesh (R and Z on chip) and one on the small mesh's plan
+    with 256 padding slots more per halo (another shared-memory size and
+    grid), each behind a spin kernel: no launch fails, and every result
+    equals, bit for bit, the one a single thread got."""
+    s, c1 = setup, config1
+    lo, hi = np.float32(tk.MASS_LO), np.float32(tk.MASS_HI)
+    theta, a, b = tk._binv_coefs(lo, hi, 8)
+    N = tk.shape_table(dev)
+    pl = s["gs"].plan
+    pad = torch.full((pl.halo.shape[0], 256), -1, dtype=torch.int32,
+                     device=dev)
+    gs_pad = s["gs"]._replace(plan=pl._replace(
+        halo=torch.cat([pl.halo, pad], 1).contiguous()))
+    D1 = c1["ga"].interior_mask.shape[0]
+    cases = [
+        (torch.randn((D1, 22), generator=s["gen"], device=dev), c1["gs"],
+         c1["qf"].w, c1["ga"].interior_mask, 1.0 / torch.sqrt(c1["diag"])),
+        (s["X"], gs_pad, s["qs"].w, s["ga"].interior_mask,
+         _dinv(s["ga"], dev)),
+    ]
+
+    def launch(i):
+        X, gs, w, mask, ds = cases[i]
+        return ck.binv_chain(X, gs, w, N, mask, ds, a, b, theta, 8)
+
+    refs = [launch(i) for i in range(2)]
+    assert torch.equal(refs[1], launch(1))
+    differ = [torch.zeros((), dtype=torch.int64, device=dev)
+              for _ in range(2)]
+    rounds = [0, 0]
+    errors = []
+    start = threading.Barrier(2)
+
+    def worker(i):
+        try:
+            start.wait(60)
+            for _ in range(300):
+                torch.cuda._sleep(200000)
+                differ[i] += (launch(i) != refs[i]).sum()
+                rounds[i] += 1
+            torch.cuda.synchronize()
+        except Exception as exc:      # reported below, with its thread
+            errors.append((i, repr(exc)))
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == []
+    assert rounds == [300, 300]
     assert [int(d) for d in differ] == [0, 0]
 
 

@@ -190,6 +190,112 @@ def test_mass_step_updates_r_and_z_in_place(sw):
     assert torch.equal(out, 0.7 * Dd + 0.3 * Rn)
 
 
+@pytest.mark.parametrize("L", [22, 528])
+@pytest.mark.parametrize("degree", [2, 4, 8])
+def test_binv_chain_equals_plain_semi_iteration(sw, degree, L):
+    """K12's wrapper (on the CPU its twin, the K3 step chain) gives the
+    semi-iteration written in torch ops around the unfused mass apply
+    (``_apply_binv_fused_plain``) bit for bit, at the scalar filter's 22
+    lanes and the config-1 sweep's 528, and leaves its input as it was."""
+    from pl_fem_tpu_torch.ops import cuda_kernels as ck
+
+    rng = np.random.default_rng(degree * 1000 + L)
+    X = _t(rng.standard_normal((sw["D"], L)).astype(np.float32))
+    X0 = X.clone()
+    dinv, lo, hi = _binv_inputs(sw)
+    theta, a, b = tk._binv_coefs(lo, hi, degree)
+    y = ck.binv_chain(X, sw["tgs"], sw["tqs"].w, tk.shape_table("cpu"),
+                      _t(sw["mask"]), _t(dinv), a, b, theta, degree)
+    assert torch.equal(y, tk._apply_binv_fused_plain(
+        sw["tqs"], sw["tgs"], _t(sw["mask"]), _t(dinv), lo, hi, X, degree))
+    assert torch.equal(X, X0)
+
+
+@pytest.mark.parametrize("degree,L,chain", [
+    (1, 22, False),           # one K3 step
+    (2, 22, True),
+    (8, 22, True),            # the scalar filter
+    (2, 32, True),            # rows one quarter warp sums
+    (2, 33, False),           # past them: the K3 step chain
+    (4, 528, False),          # the config-1 sweep's lanes
+])
+def test_binv_steps_route_short_rows_through_the_chain(
+        sw, degree, L, chain, monkeypatch):
+    """``_binv_steps`` hands degree >= 2 on rows of at most BINV_LANES
+    lanes to K12 in one call and keeps the rest on K3 steps (degree 1,
+    wider rows); either way the result is the plain semi-iteration's."""
+    from pl_fem_tpu_torch.ops import cuda_kernels as ck
+
+    calls, steps = [], []
+    k12, k3 = tk.binv_chain, tk.mass_apply
+
+    def counted_chain(*args):
+        calls.append(args[-1])
+        return k12(*args)
+
+    def counted_step(*args, **kw):
+        steps.append(kw["step"].first)
+        return k3(*args, **kw)
+
+    monkeypatch.setattr(tk, "binv_chain", counted_chain)
+    monkeypatch.setattr(tk, "mass_apply", counted_step)
+    assert ck.BINV_LANES == 32
+    rng = np.random.default_rng(degree * 1000 + L)
+    Xl = _t(rng.standard_normal((sw["D"], L)).astype(np.float32))
+    dinv, lo, hi = _binv_inputs(sw)
+    y = tk._binv_steps(sw["tqs"].w, sw["tgs"], _t(sw["mask"]), _t(dinv), lo,
+                       hi, Xl, degree)
+    assert calls == ([degree] if chain else [])
+    assert len(steps) == (0 if chain else degree)
+    assert torch.equal(y, tk._apply_binv_fused_plain(
+        sw["tqs"], sw["tgs"], _t(sw["mask"]), _t(dinv), lo, hi, Xl, degree))
+
+
+# an H100: 132 SMs, 226 KB of shared memory a launcher gives a CTA; K12's
+# halo staging and block record take some of it (what they take depends
+# on the plan: none, and 64 KB, are tried)
+H100_SM, H100_CTA = 132, 226 * 1024
+
+
+@pytest.mark.parametrize("staged", [0, 64 * 1024])
+@pytest.mark.parametrize("D,L,on_chip", [
+    (59963, 22, True),        # config-1 scalar filter
+    (60416, 22, True),        # the same mesh as the device grid pads it
+    (59963, 528, False),      # config-1 vectorial sweep, B = 8, k = 22
+    (155648, 27, False),      # r5 scalar mesh at its largest k
+    (155648, 630, False),     # r5 vectorial sweep, B = 5, k = 42
+])
+def test_binv_on_chip_is_a_function_of_shape_and_card(D, L, on_chip,
+                                                      staged):
+    """Where K12 keeps R and Z follows from (D, L) and the card alone:
+    on chip for the config-1 scalar filter, device memory for the
+    sweep's lanes and for the r5 scalar mesh. The rule is R and Z of the
+    rows one CTA an SM owns against what that CTA has left."""
+    from pl_fem_tpu_torch.ops import cuda_kernels as ck
+
+    shared = H100_CTA - staged
+    assert ck.binv_on_chip(D, L, H100_SM, shared) is on_chip
+    rows = -(-(-(-D // ck.MASS_ROWS)) // H100_SM) * ck.MASS_ROWS
+    assert ck.binv_on_chip(D, L, H100_SM, 8 * rows * L) is True
+    assert ck.binv_on_chip(D, L, H100_SM, 8 * rows * L - 1) is False
+
+
+def test_binv_chain_refuses_degree_below_two(sw):
+    """Degree 1 is one K3 step, not a chain; a coefficient list of the
+    wrong length is refused too."""
+    from pl_fem_tpu_torch.ops import cuda_kernels as ck
+
+    X = _t(sw["X"].reshape(sw["D"], -1))
+    dinv, lo, hi = _binv_inputs(sw)
+    args = (sw["tgs"], sw["tqs"].w, tk.shape_table("cpu"), _t(sw["mask"]),
+            _t(dinv))
+    theta, a, b = tk._binv_coefs(lo, hi, 2)
+    with pytest.raises(ValueError):
+        ck.binv_chain(X, *args, a[:1], b[:1], theta, 1)
+    with pytest.raises(ValueError):
+        ck.binv_chain(X, *args, a, b[:1], theta, 2)
+
+
 def test_dof_row_order_is_cached_permutation(sw):
     """The row walk of the mass kernel: a deterministic permutation of
     range(D), built once per device grid with the plan. Its blocks are
