@@ -657,7 +657,8 @@ def p2_prolongation(coarse: FEMGrid, fine_coords: np.ndarray):
 # ============================================================================
 
 class MeshGenerator:
-    """Adaptive mesh generation with an LRU cache keyed by geometry hash."""
+    """Adaptive mesh generation with an LRU cache keyed by the cross-
+    section's shape."""
 
     _cache: "OrderedDict[str, FEMGrid]" = OrderedDict()
     _cache_hits = 0
@@ -730,8 +731,15 @@ class MeshGenerator:
     @classmethod
     def _cache_key(cls, geometry, refinement: float,
                    mc: Optional[MeshConfig] = None) -> str:
+        # the cross-section's shape alone: the mesh does not depend on
+        # the wavelength or the indices, so one entry serves a band sweep
+        # and each of its bootstrap's coarse grids
         h = hashlib.sha256()
-        h.update(getattr(geometry, "hash", repr(geometry)).encode())
+        h.update(np.ascontiguousarray(geometry.positions,
+                                      dtype=np.float64).tobytes())
+        h.update(np.ascontiguousarray(geometry.core_radii,
+                                      dtype=np.float64).tobytes())
+        h.update(f"{geometry.domain_radius:.6f}".encode())
         h.update(f"{refinement:.4f}".encode())
         h.update(str(geometry.n_cores).encode())
         h.update(f"{geometry.pml_thickness:.2f}".encode())

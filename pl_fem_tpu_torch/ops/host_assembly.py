@@ -19,8 +19,20 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import scipy.sparse as sp
+import torch
 
 from .femgrid import DeviceGrid
+
+
+def spmm(A: sp.csr_matrix, X: np.ndarray) -> np.ndarray:
+    """``A @ X`` for a CSR ``A`` and a dense block ``X``, in their float64
+    on torch's CPU threads: scipy's sparse product runs on one core,
+    torch's on all of them. The same sums, in another order."""
+    At = torch.sparse_csr_tensor(
+        torch.from_numpy(A.indptr.astype(A.indices.dtype, copy=False)),
+        torch.from_numpy(A.indices), torch.from_numpy(A.data),
+        size=A.shape, check_invariants=False)
+    return (At @ torch.from_numpy(np.ascontiguousarray(X))).numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -280,8 +292,7 @@ class HostVector3:
     def Ai_matvec(self, V: np.ndarray):
         """(A0 V, A1 V, A2 V) — the only design-specific products the
         polish needs (see ``LazyVector3`` for the family fast path)."""
-        A0, A1, A2 = self.Ai()
-        return A0 @ V, A1 @ V, A2 @ V
+        return tuple(spmm(A, V) for A in self.Ai())
 
 
 def build_host_vector3(dg: DeviceGrid, eps_params,
@@ -687,7 +698,7 @@ class LazyVector3:
         _, views = self.fam._scratch_views()
         self.fam._combine_into(self.fam._scratch, self.ic, self.il,
                                self.corr)
-        return views[0] @ V, views[1] @ V, views[2] @ V
+        return tuple(spmm(A, V) for A in views[:3])
 
 
 class _SubGrid:
@@ -961,12 +972,13 @@ def _build_host_vector3_family(dg: DeviceGrid, eps_params,
 
 def b_orthonormalize_np(X: np.ndarray, B: sp.csr_matrix,
                         drop_tol: float = 1e-10,
-                        return_BV: bool = False):
+                        return_BV: bool = False, matmul=None):
     """Whiten X in the B inner product; drops near-dependent directions.
 
     With ``return_BV`` also returns B @ V reusing the B @ X product
-    (V = X T implies B V = (B X) T — no second SpMV)."""
-    BX = B @ X
+    (V = X T implies B V = (B X) T — no second SpMV). ``matmul(B, X)``
+    replaces ``B @ X`` (``spmm``: on all host cores)."""
+    BX = B @ X if matmul is None else matmul(B, X)
     G = X.T @ BX
     G = 0.5 * (G + G.T)
     w, V = np.linalg.eigh(G)
@@ -1001,6 +1013,9 @@ def rr_pencil(A: sp.csr_matrix, B: sp.csr_matrix, X: np.ndarray,
     return theta, Xr, res
 
 
+_SLAB = 1 << 15     # rows of the polish's residual formed at a time
+
+
 def quadratic_subspace(hv: HostVector3, X: np.ndarray, k0: float,
                        beta_lo: float, beta_hi: float,
                        mask: Optional[np.ndarray] = None):
@@ -1012,7 +1027,7 @@ def quadratic_subspace(hv: HostVector3, X: np.ndarray, k0: float,
     """
     import scipy.linalg as sla
 
-    V, MV = b_orthonormalize_np(X, hv.M3, return_BV=True)
+    V, MV = b_orthonormalize_np(X, hv.M3, return_BV=True, matmul=spmm)
     A0V, A1V, A2V = hv.Ai_matvec(V)
     a0 = V.T @ A0V
     a1 = V.T @ A1V
@@ -1036,11 +1051,18 @@ def quadratic_subspace(hv: HostVector3, X: np.ndarray, k0: float,
     # Residuals for all roots WITHOUT extra SpMVs: H = V ys and each
     # A_i H = (A_i V) ys is linear in the projected products already
     # computed above (halves the SpMV count of the polish — the 1-core
-    # host's serial tail).
-    R = A0V @ ys + (A1V @ ys) * betas[None, :] \
-        + (A2V @ ys) * (betas**2)[None, :] - k0**2 * (MV @ ys)
-    if mask is not None:
-        R = R * mask[:, None]
-    res = np.linalg.norm(R, axis=0) / (k0**2 * np.linalg.norm(H, axis=0)
-                                       + 1e-300)
+    # host's serial tail). Formed a slab of rows at a time, with the
+    # roots' scales folded into the small coefficient blocks: only the
+    # column norms are kept, and no full-size temporary is made.
+    coefs = ((A0V, ys), (A1V, ys * betas[None, :]),
+             (A2V, ys * (betas**2)[None, :]), (MV, -k0**2 * ys))
+    rr = np.zeros(len(betas))
+    for lo in range(0, V.shape[0], _SLAB):
+        rows = slice(lo, lo + _SLAB)
+        R = sum(P[rows] @ C for P, C in coefs)
+        if mask is not None:
+            R *= mask[rows, None]
+        rr += np.einsum("ij,ij->j", R, R)
+    res = np.sqrt(rr) / (k0**2 * np.sqrt(np.einsum("ij,ij->j", H, H))
+                         + 1e-300)
     return betas, H, V, res

@@ -54,6 +54,7 @@ from ..ops.host_assembly import (
     eps_at_quadrature_np,
     quadratic_subspace,
     scalar_pattern,
+    spmm,
     vector3_prims_np,
 )
 from ..ops.cuda_kernels import seed_prolong
@@ -563,7 +564,7 @@ class TrueVectorialMaxwellSolver:
     @classmethod
     def _solve_sweep(cls, geometries, grid, n_modes_target, config,
                      _raw_modes, diag_out, X0, noise, coarse_X0, mesh):
-        from ..utils import PhaseTimer
+        from ..utils import PhaseTimer, span
 
         timer = PhaseTimer()
         cls.last_sweep_times = timer.times
@@ -768,113 +769,117 @@ class TrueVectorialMaxwellSolver:
         Xact = X                      # (3Dp, |sel|, k) active subspace
         sel = list(range(B))          # design index of each Xact column
         for ip in range(max_rounds):
-            # residual gate only on the modes the caller needs
-            n_gate = min(k, n_modes_target + 4)
-            # fast mode with a bootstrap seed hard-caps the in-round
-            # passes at bootstrap_fine_passes
-            mp = max(1, scfg.bootstrap_fine_passes) \
-                if (boot is not None and beta_passes_eff == 1) else 8
-            # a small beta jitter between rounds decorrelates the f32
-            # filter's subspace-error directions so the pooled polish
-            # cancels them
-            _jit = (0.0, 2e-3, -2e-3, 4e-3, -4e-3, 6e-3)[ip % 6]
-            qs_act = qs if len(sel) == B else \
-                qs._replace(inv_eps=qs.inv_eps[torch.as_tensor(
-                    sel, device=dev)].contiguous())
-            with timer.phase("filter"):
-                theta, Xr, res = solve_lowest_sweep(
-                    qs_act, gs, ga.interior_mask, diag, Xact, cuts[sel],
-                    betas[sel] * (1.0 + _jit),
-                    scfg.alpha_penalty, bounds[sel],
-                    degree=scfg.cheb_degree,
-                    passes=cheb_passes_eff, tol=scfg.scalar_tol,
-                    parks=parks[sel], n_wanted=n_gate, max_passes=mp,
-                    binv_degree=binv_eff, mesh=mesh)
-            with timer.phase("xfer"):
-                Xr_host = Xr.cpu().numpy()
-            beta_new = betas.copy()
-            qnow = {}
-            for j, bix in enumerate(active):
-                g = geometries[bix]
-                Xh = np.asarray(Xr_host[:, j, :], dtype=np.float64)
-                if scfg.debug_checks and not np.isfinite(Xh).all():
-                    # diagnosed, not a garbage beta: the design leaves
-                    # the sweep with an empty mode list and a message
-                    diags[bix] = (f"non-finite filter subspace at round "
-                                  f"{ip} (filter diverged or NaN inputs "
-                                  f"reached assembly)")
-                    logger.warning("debug_checks: design %d: %s", bix,
-                                   diags[bix])
-                    results[bix] = []
-                    pooled[bix] = None
-                    continue
-                Xh = np.concatenate(
-                    [Xh[c * Dp:c * Dp + n] for c in range(3)],
-                    axis=0) * mask3[:, None]
-                pooled[bix] = Xh if pooled[bix] is None else \
-                    np.concatenate([pooled[bix], Xh], axis=1)
-                with timer.phase("host_family"):
-                    hv = _hv(bix)
-                with timer.phase("polish"):
-                    bts, H, _, qres = quadratic_subspace(
-                        hv, pooled[bix], g.k0,
-                        g.k0 * g.n_clad * (1 + 1e-9), g.k0 * g.n_core * 1.01,
-                        mask=mask3)
-                if len(bts) > k:
-                    # keep the k best-converged roots (ARPACK returns
-                    # exactly k = n + 12, solver_fem.py:196)
-                    keep = np.argsort(qres)[:k]
-                    keep = keep[np.argsort(-bts[keep])]
-                    bts, H, qres = bts[keep], H[:, keep], qres[keep]
-                if len(bts):
-                    qnow[bix] = float(qres[:n_modes_target].max())
-                    beta_new[bix] = float(np.median(bts))
-                    hx, hy, hz = H[:n], H[n:2 * n], H[2 * n:]
-                    if _raw_modes:
-                        # subspace-seed consumers (two-grid bootstrap)
-                        # need only fields + beta
-                        order = np.argsort(-bts)
-                        results[bix] = [
-                            {"beta": float(bts[i]),
-                             "n_eff": float(bts[i]) / g.k0,
-                             "Ex_dofs": hx[:, i], "Ey_dofs": hy[:, i],
-                             "Hz_dofs": hz[:, i]}
-                            for i in order]
+            # one span a round: its filter, transfer, polish and
+            # post-processing (sweep.beta_rounds_per_design counts them)
+            with span("beta_round"):
+                # residual gate only on the modes the caller needs
+                n_gate = min(k, n_modes_target + 4)
+                # fast mode with a bootstrap seed hard-caps the in-round
+                # passes at bootstrap_fine_passes
+                mp = max(1, scfg.bootstrap_fine_passes) \
+                    if (boot is not None and beta_passes_eff == 1) else 8
+                # a small beta jitter between rounds decorrelates the f32
+                # filter's subspace-error directions so the pooled polish
+                # cancels them
+                _jit = (0.0, 2e-3, -2e-3, 4e-3, -4e-3, 6e-3)[ip % 6]
+                qs_act = qs if len(sel) == B else \
+                    qs._replace(inv_eps=qs.inv_eps[torch.as_tensor(
+                        sel, device=dev)].contiguous())
+                with timer.phase("filter"):
+                    theta, Xr, res = solve_lowest_sweep(
+                        qs_act, gs, ga.interior_mask, diag, Xact, cuts[sel],
+                        betas[sel] * (1.0 + _jit),
+                        scfg.alpha_penalty, bounds[sel],
+                        degree=scfg.cheb_degree,
+                        passes=cheb_passes_eff, tol=scfg.scalar_tol,
+                        parks=parks[sel], n_wanted=n_gate, max_passes=mp,
+                        binv_degree=binv_eff, mesh=mesh)
+                with timer.phase("xfer"):
+                    Xr_host = Xr.cpu().numpy()
+                beta_new = betas.copy()
+                qnow = {}
+                for j, bix in enumerate(active):
+                    g = geometries[bix]
+                    Xh = np.asarray(Xr_host[:, j, :], dtype=np.float64)
+                    if scfg.debug_checks and not np.isfinite(Xh).all():
+                        # diagnosed, not a garbage beta: the design leaves
+                        # the sweep with an empty mode list and a message
+                        diags[bix] = (f"non-finite filter subspace at round "
+                                      f"{ip} (filter diverged or NaN inputs "
+                                      f"reached assembly)")
+                        logger.warning("debug_checks: design %d: %s", bix,
+                                       diags[bix])
+                        results[bix] = []
+                        pooled[bix] = None
                         continue
-                    solver = cls(g, config=cfg)
-                    with timer.phase("postproc"):
-                        results[bix] = solver._postprocess(
-                            hv, dg, bts, hx, hy, hz, n_modes_target)
-            # Per-design continue/exit: a design keeps iterating while
-            # EITHER its beta still moves OR its polished roots'
-            # full-space quadratic residual is above tolerance, with a
-            # per-design stall detector.
-            still = []
-            for bix in active:
-                if bix in diags:
-                    continue
-                q_b = qnow.get(bix, np.inf)
-                beta_stable = abs(beta_new[bix] - betas[bix]) <= 1e-6
-                converged = beta_stable and q_b <= scfg.polish_qres_tol
-                stalled = beta_stable and q_b > 0.7 * prev_q[bix]
-                prev_q[bix] = q_b
-                if not converged and not stalled:
-                    still.append(bix)
-            logger.debug("sweep round %d: active %d -> %d, qworst=%.2e "
-                         "dbeta=%.2e", ip, len(active), len(still),
-                         max(qnow.values()) if qnow else np.inf,
-                         np.abs(beta_new - betas).max())
-            if ip + 1 >= max_rounds or not still:
-                break
-            betas = beta_new
-            cuts = np.array([min(b**2 / g.n_clad**2, 1.35 * g.k0**2)
-                             for b, g in zip(betas, geometries)])
-            parks = 10.0 * np.maximum(cuts, 1.0)
-            col_of = {bix: j for j, bix in enumerate(sel)}
-            active = still
-            sel = _pad_active(active, B, mesh)
-            cols = torch.as_tensor([col_of[bix] for bix in sel], device=dev)
-            Xact = Xr[:, cols, :]
+                    Xh = np.concatenate(
+                        [Xh[c * Dp:c * Dp + n] for c in range(3)],
+                        axis=0) * mask3[:, None]
+                    pooled[bix] = Xh if pooled[bix] is None else \
+                        np.concatenate([pooled[bix], Xh], axis=1)
+                    with timer.phase("host_family"):
+                        hv = _hv(bix)
+                    with timer.phase("polish"):
+                        bts, H, _, qres = quadratic_subspace(
+                            hv, pooled[bix], g.k0,
+                            g.k0 * g.n_clad * (1 + 1e-9),
+                            g.k0 * g.n_core * 1.01, mask=mask3)
+                    if len(bts) > k:
+                        # keep the k best-converged roots (ARPACK returns
+                        # exactly k = n + 12, solver_fem.py:196)
+                        keep = np.argsort(qres)[:k]
+                        keep = keep[np.argsort(-bts[keep])]
+                        bts, H, qres = bts[keep], H[:, keep], qres[keep]
+                    if len(bts):
+                        qnow[bix] = float(qres[:n_modes_target].max())
+                        beta_new[bix] = float(np.median(bts))
+                        hx, hy, hz = H[:n], H[n:2 * n], H[2 * n:]
+                        if _raw_modes:
+                            # subspace-seed consumers (two-grid bootstrap)
+                            # need only fields + beta
+                            order = np.argsort(-bts)
+                            results[bix] = [
+                                {"beta": float(bts[i]),
+                                 "n_eff": float(bts[i]) / g.k0,
+                                 "Ex_dofs": hx[:, i], "Ey_dofs": hy[:, i],
+                                 "Hz_dofs": hz[:, i]}
+                                for i in order]
+                            continue
+                        solver = cls(g, config=cfg)
+                        with timer.phase("postproc"):
+                            results[bix] = solver._postprocess(
+                                hv, dg, bts, hx, hy, hz, n_modes_target)
+                # Per-design continue/exit: a design keeps iterating while
+                # EITHER its beta still moves OR its polished roots'
+                # full-space quadratic residual is above tolerance, with a
+                # per-design stall detector.
+                still = []
+                for bix in active:
+                    if bix in diags:
+                        continue
+                    q_b = qnow.get(bix, np.inf)
+                    beta_stable = abs(beta_new[bix] - betas[bix]) <= 1e-6
+                    converged = beta_stable and q_b <= scfg.polish_qres_tol
+                    stalled = beta_stable and q_b > 0.7 * prev_q[bix]
+                    prev_q[bix] = q_b
+                    if not converged and not stalled:
+                        still.append(bix)
+                logger.debug("sweep round %d: active %d -> %d, qworst=%.2e "
+                             "dbeta=%.2e", ip, len(active), len(still),
+                             max(qnow.values()) if qnow else np.inf,
+                             np.abs(beta_new - betas).max())
+                if ip + 1 >= max_rounds or not still:
+                    break
+                betas = beta_new
+                cuts = np.array([min(b**2 / g.n_clad**2, 1.35 * g.k0**2)
+                                 for b, g in zip(betas, geometries)])
+                parks = 10.0 * np.maximum(cuts, 1.0)
+                col_of = {bix: j for j, bix in enumerate(sel)}
+                active = still
+                sel = _pad_active(active, B, mesh)
+                cols = torch.as_tensor([col_of[bix] for bix in sel],
+                                       device=dev)
+                Xact = Xr[:, cols, :]
         # the bootstrap's nested solve_sweep re-binds the hooks; restore
         # this (outermost) call's breakdown before returning
         cls.last_sweep_times = timer.times
@@ -897,9 +902,9 @@ class TrueVectorialMaxwellSolver:
             hz = hz / nrm
 
         # divergence energy ratio (solver_fem.py:214-215)
-        div_energy = (np.sum(hx * (hv.Dxx @ hx), axis=0)
-                      + 2.0 * np.sum(hx * (hv.Dxy @ hy), axis=0)
-                      + np.sum(hy * (hv.Dyy @ hy), axis=0))
+        div_energy = (np.sum(hx * spmm(hv.Dxx, hx), axis=0)
+                      + 2.0 * np.sum(hx * spmm(hv.Dxy, hy), axis=0)
+                      + np.sum(hy * spmm(hv.Dyy, hy), axis=0))
         div_ratio = div_energy / np.maximum(betas**2, 1e-12)
 
         # PML radiation damping: first-order perturbation of the real-eps
@@ -907,11 +912,11 @@ class TrueVectorialMaxwellSolver:
         # <h|M|h> on the transverse intensity; Im beta = Im(beta^2) /
         # (2 beta).
         if hv.Mim is not None:
-            num = (np.sum(hx * (hv.Mim @ hx), axis=0)
-                   + np.sum(hy * (hv.Mim @ hy), axis=0))
+            num = (np.sum(hx * spmm(hv.Mim, hx), axis=0)
+                   + np.sum(hy * spmm(hv.Mim, hy), axis=0))
             Mh = hv.M3[:hx.shape[0], :hx.shape[0]]
-            den = (np.sum(hx * (Mh @ hx), axis=0)
-                   + np.sum(hy * (Mh @ hy), axis=0))
+            den = (np.sum(hx * spmm(Mh, hx), axis=0)
+                   + np.sum(hy * spmm(Mh, hy), axis=0))
             beta_im = (self.k0**2 * num / np.maximum(den, 1e-300)
                        / np.maximum(2.0 * betas, 1e-300))
         else:

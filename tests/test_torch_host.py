@@ -73,6 +73,46 @@ def test_host_family_csr_bit_equal(grids):
         assert (a != b).nnz == 0, name
 
 
+def test_mesh_cache_is_keyed_by_the_shape():
+    """One cache entry serves a cross-section at every wavelength and
+    index (the mesh depends on its shape alone); another core radius is
+    another mesh."""
+    cfg = SimulationConfig(mesh_min_points=200, mesh_target_points=200,
+                           mesh=MeshConfig(bucket_rounding=128))
+    MeshGenerator.clear_cache()
+    grid = MeshGenerator.generate(MCFGeometry(7, 8.0, 1.5, 1.535, 1.0,
+                                              wavelength_um=1.55), 0.3, cfg)
+    same = MCFGeometry(7, 8.0, 1.5, 1.47, 1.0, wavelength_um=1.62)
+    assert MeshGenerator.generate(same, 0.3, cfg) is grid
+    other = MCFGeometry(7, 8.0, 1.4, 1.535, 1.0, wavelength_um=1.55)
+    assert MeshGenerator.generate(other, 0.3, cfg) is not grid
+    MeshGenerator.clear_cache()
+
+
+def test_polish_residuals_are_the_pencils(grids, monkeypatch):
+    """``quadratic_subspace``'s residuals (sparse products on torch's
+    threads, formed a slab of rows at a time) are those of the full
+    pencil applied by scipy to each returned field, with one slab or
+    many."""
+    from pl_fem_tpu_torch.ops import host_assembly as ha
+
+    _, _, g, dg = grids
+    hv = ha.build_host_vector3(dg, g.eps_params(), 1.0)
+    rng = np.random.default_rng(3)
+    X = rng.standard_normal((hv.M3.shape[0], 16))
+    mask = (rng.random(X.shape[0]) > 0.1).astype(np.float64)
+    betas, H, _, res = ha.quadratic_subspace(hv, X, g.k0, -1e9, 1e9, mask)
+    assert len(betas) >= 4
+    plain = [np.linalg.norm(mask * (hv.A_of(b) @ h - g.k0**2 * (hv.M3 @ h)))
+             / (g.k0**2 * np.linalg.norm(h)) for b, h in zip(betas, H.T)]
+    np.testing.assert_allclose(res, plain, rtol=1e-9)
+    monkeypatch.setattr(ha, "_SLAB", 1000)
+    assert X.shape[0] > 3 * ha._SLAB
+    np.testing.assert_allclose(
+        ha.quadratic_subspace(hv, X, g.k0, -1e9, 1e9, mask)[3], res,
+        rtol=1e-12)
+
+
 def test_solver_config_trimmed_and_presets():
     names = {f.name for f in dataclasses.fields(SolverConfig)}
     for dropped in ("scalar_maxiter", "dtype_filter", "dtype_rr",

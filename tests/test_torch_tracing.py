@@ -188,7 +188,8 @@ def test_no_range_without_profiler(monkeypatch):
 def test_sweep_spans(monkeypatch):
     """A two-design vectorial sweep: every key of ``last_sweep_times``
     has its spans (a phase entered once per design has one per entry),
-    and one pl_fem.rr_pass per pass of ``solve_lowest_sweep``."""
+    one pl_fem.rr_pass per pass of ``solve_lowest_sweep``, and one
+    pl_fem.beta_round for its one outer round."""
     cfg = SimulationConfig(
         mesh_min_points=200, mesh_target_points=900,
         mesh=MeshConfig(bucket_rounding=128),
@@ -206,8 +207,9 @@ def test_sweep_spans(monkeypatch):
     spans, (lo, hi) = _spans(prof)
     times = TrueVectorialMaxwellSolver.last_sweep_times
     names = [name for name, *_ in spans]
-    assert set(names) == set(times) | {"rr_pass"}
+    assert set(names) == set(times) | {"rr_pass", "beta_round"}
     assert names.count("rr_pass") == len(calls) >= 2
+    assert names.count("beta_round") == 1
     assert names.count("filter") == 1 and names.count("polish") == 2
     for name in times:
         dur = sum(b - a for n, a, b, _ in spans if n == name) / 1e6
